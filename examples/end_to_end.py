@@ -27,7 +27,7 @@ def run():
         query = encode_seq(qrec.seq)
         targets = [encode_seq(r.seq) for r in db]
 
-        bank = ScoreBank()  # pallas on TPU, scan elsewhere
+        bank = ScoreBank()  # the wavefront kernel on the GPU, scan elsewhere
         res = bank.score_database(query, targets)
         want = score_many_vs_one(query, targets)
         assert (res.scores == want).all(), "kernel != oracle"

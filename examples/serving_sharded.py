@@ -1,16 +1,14 @@
-"""Mesh-sharded device-resident serving demo (round 5).
+"""Mesh-sharded device-resident serving demo.
 
 The reference's library is resident per scoring module across the bank
 (`MODULES` feeders, ScoreBank_v2.v:77-139) with the query broadcast to
-every module (`ld_q`, v2.v:99-102).  The pod-scale TPU form: each mesh
-device holds its shard of the packed streams in HBM; every query is one
-shard_map dispatch shipping only the replicated ~16 KB register, with
-results either as the full read-order score vector or a collective top-K
-(2k scalars D2H).
+every module (`ld_q`, v2.v:99-102).  Here each mesh device holds its shard
+of the packed streams in its memory; every query is one shard_map dispatch
+shipping only the replicated query, with results either as the full
+read-order score vector or a collective top-K (2k scalars D2H).
 
-Runs on the 8-virtual-device CPU mesh by default (set
-XLA_FLAGS=--xla_force_host_platform_device_count=8), or on a real slice
-with SWTPU_EXAMPLE_TPU=1.
+Runs over every visible GPU when JAX finds one, else on an 8-device
+virtual CPU mesh (the stream kernel in the Pallas interpreter).
 """
 
 import os
@@ -20,15 +18,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-if not os.environ.get("SWTPU_EXAMPLE_TPU"):
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=8"
-        ).strip()
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+# only the CPU platform reads this: 8 virtual devices when there is no GPU
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = (
+        flags + " --xla_force_host_platform_device_count=8"
+    ).strip()
 
 import numpy as np
 
@@ -49,7 +44,7 @@ def run():
     bank = ScoreBank(backend="stream")
     mesh = make_mesh()  # every visible device = one resident feeder bank
     t0 = time.perf_counter()
-    db = bank.load_database_sharded(targets, mesh, max_query_len=256)
+    db = bank.load_database_sharded(targets, mesh)
     print(
         f"loaded {n_reads} reads across {db.n_shards} device shards in "
         f"{time.perf_counter()-t0:.2f}s (per-shard stream "

@@ -1,17 +1,18 @@
-"""swtpu — TPU-native Smith-Waterman scoring framework.
+"""swtpu — a Smith-Waterman scoring engine in JAX, for the GPU.
 
-A brand-new JAX/XLA/Pallas/pjit framework with the capabilities of the
+A JAX/XLA/Pallas framework with the capabilities of the
 `ilirlikalla/Smith-Waterman-FPGA-module` reference design: batched, score-only
 Smith-Waterman local alignment with affine (Gotoh) gaps, length-bucketed
 sequence packing, ID-tagged result collection, top-K hit reporting, and
-multi-chip / multi-host data-parallel scaling.
+multi-device / multi-host data-parallel scaling.
 
-Layer map (TPU-native re-design of the reference's layers, SURVEY.md §1):
+Layer map (re-design of the reference's layers, SURVEY.md §1):
 
   reference layer                      swtpu equivalent
   -----------------------------------  -------------------------------------
   L1 SW_ProcessingElement (PE cell)    ops/ kernels: the Gotoh recurrence
-  L2 ScoringModule (systolic array)    ops.pallas_kernel / ops.scan (vmapped)
+  L2 ScoringModule (systolic array)    ops.pallas_stream (Triton wavefront)
+                                       / ops.scan (plain lax.scan)
   L3 ScoreBank (feeders+dispatch)      bank/ (length buckets, packer, IDs)
   L4 CAPI AFU shell                    JAX runtime (device_put / jit dispatch)
   L5 RTL testbenches                   tests/ (golden-file parity)

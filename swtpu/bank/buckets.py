@@ -1,11 +1,11 @@
-"""Length bucketing — the dispatch policy of the TPU ScoreBank.
+"""Length bucketing — the dispatch policy of the scan-backend ScoreBank.
 
 The reference load-balances variable-length targets across fixed-capacity
 scoring modules with a priority encoder and per-feeder backpressure
-(ScoreBank/ScoreBank_v2.v:141-165, ScoreBank/SM_Feeder2.v:201).  On TPU the
-equivalent concern is *shape economy*: XLA programs are compiled per static
-shape, so reads are grouped into a small set of static length buckets and
-padded up with sentinels.  GCUPS accounting distinguishes real cells
+(ScoreBank/ScoreBank_v2.v:141-165, ScoreBank/SM_Feeder2.v:201).  For the
+scan the equivalent concern is *shape economy*: XLA programs are compiled
+per static shape, so reads are grouped into a small set of static length
+buckets and padded up with sentinels.  GCUPS accounting distinguishes real cells
 (sum of len_q*len_t) from padded cells so bucketing efficiency is visible
 (SURVEY.md §7 "hard parts").
 """

@@ -146,7 +146,7 @@ def _resumable_stream(
     so resumed jobs keep flagship speed."""
     t0 = time.perf_counter()
     if chunk_reads is None:
-        chunk_reads = (1 << 18) if not bank._interpret else 8
+        chunk_reads = bank.plan.streams * 8
     tmat, tlens = _dense_form(targets)
     n_reads = len(tlens) if tlens is not None else len(targets)
     fp = _fingerprint(

@@ -3,12 +3,12 @@
 The reference's library is resident per scoring module across the whole
 bank: `MODULES` feeders each hold their own targets while the query
 register broadcasts to every module (ScoreBank/ScoreBank_v2.v:77-139; the
-`ld_q` broadcast, v2.v:99-102).  The TPU form at pod scale: each mesh
-device holds ONE shard of the packed streams RESIDENT in its HBM (kernel
-layout [T, N], exactly like the single-chip LoadedDatabase), and every
-query dispatch is one shard_map of the streamed wavefront kernel — the
-~16 KB query register is the only H2D traffic, replicated to every device,
-and results come back either as the full per-read score vector or as a
+`ld_q` broadcast, v2.v:99-102).  Here each mesh device holds ONE shard of
+the packed streams RESIDENT in its memory (kernel layout [T, N], exactly
+like the single-device LoadedDatabase), and every query dispatch is one
+shard_map of the streamed wavefront kernel — the query is the only H2D
+traffic, replicated to every device, and results come back either as the
+full per-read score vector or as a
 collective top-K merge (2k scalars, the `max`/`vld_max` intent,
 ScoreBank_v2.v:42-43).
 
@@ -36,8 +36,8 @@ class ShardedLoadedDatabase:
     emit_stream/emit_step/ids: [D, R] int32 sharded device arrays (R = max
       reads per shard; padding slots carry emit_step = -1, ids = -1).
     ids_host: the same ids on host, for the read-order scatter.
-    Scorer executables are cached per (n_tiles, k, full) on the object so
-    serving dispatches never re-trace.
+    Scorer executables are cached per (k, full) on the object so serving
+    dispatches never re-build the shard_map.
     """
 
     stream: object
@@ -48,15 +48,13 @@ class ShardedLoadedDatabase:
     t_lens: np.ndarray
     total_chars: int
     n_reads: int
-    rows: int
-    k_max: int
-    segments: int
     mesh: object
     axis: str
     n_shards: int
     penalties: Penalties
+    tile: int
+    block: int
     interpret: bool
-    state_dtype: str
     score_width: Optional[int] = None
     emit_regular: Optional[tuple] = None  # strided-extract pattern
     _scorers: Dict[tuple, object] = dataclasses.field(default_factory=dict)
@@ -66,12 +64,10 @@ def make_sharded_loaded_scorer(
     mesh,
     axis: str = "data",
     penalties: Penalties = DEFAULT_PENALTIES,
+    tile: int = 32,
+    block: int = 128,
     interpret: bool = False,
-    segments: int = 1,
-    rows: int = 1,
-    state_dtype: str = "int32",
     k: int = 0,
-    long_query: bool = False,
     full_scores: bool = True,
     score_width: Optional[int] = None,
     emit_regular: Optional[tuple] = None,
@@ -79,42 +75,29 @@ def make_sharded_loaded_scorer(
     """Jitted shard_map over resident stream shards with a replicated query.
 
     Signature (leading axis D = mesh shard):
-      full_scores, k=0:   scores[D, R] = f(qk, stream, es, ep, ids)
+      full_scores, k=0:   scores[D, R] = f(query, stream, es, ep, ids)
       full_scores, k>0:   (scores[D, R], top_s[k], top_ids[k]) = f(...)
       not full_scores:    (top_s[k], top_ids[k]) = f(...)   # k > 0 required
 
-    qk is the query register: kernel layout [128, S_phys] for single-tile
-    queries, or the raw [N, K*128] per-stream register for chained tiles
-    (long_query=True) — replicated to every device, the `ld_q` broadcast.
+    query is the [L] int8 query, replicated to every device (the `ld_q`
+    broadcast).
     """
-    import functools
-
     import jax
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from swtpu.ops.pallas_stream import (
-        sw_scores_stream_kernel_layout, sw_scores_stream_long_kernel_layout,
-    )
+    from swtpu.ops.pallas_stream import sw_scores_stream_kernel_layout
     from swtpu.parallel.sharded import _merge_topk
 
     if not full_scores and not k:
         raise ValueError("full_scores=False requires k > 0")
 
-    def shard_fn(qk, streamT, es, ep, ids):
-        if long_query:
-            s = sw_scores_stream_long_kernel_layout(
-                qk, streamT[0], es[0], ep[0], penalties=penalties,
-                interpret=interpret, rows=rows, state_dtype=state_dtype,
-                score_width=score_width, emit_regular=emit_regular,
-            )
-        else:
-            s = sw_scores_stream_kernel_layout(
-                qk, streamT[0], es[0], ep[0], penalties=penalties,
-                interpret=interpret, segments=segments, rows=rows,
-                state_dtype=state_dtype, score_width=score_width,
-                emit_regular=emit_regular,
-            )
+    def shard_fn(query, streamT, es, ep, ids):
+        s = sw_scores_stream_kernel_layout(
+            query, streamT[0], es[0], ep[0], penalties=penalties, tile=tile,
+            block=block, interpret=interpret, score_width=score_width,
+            emit_regular=emit_regular,
+        )
         if not k:
             return s[None, :]
         fs, fids = _merge_topk(s, ids[0], k, axis)
@@ -123,7 +106,7 @@ def make_sharded_loaded_scorer(
         return s[None, :], fs, fids
 
     in_specs = (
-        P(None, None),
+        P(None),
         P(axis, None, None),
         P(axis, None),
         P(axis, None),
@@ -155,7 +138,6 @@ def load_database_sharded(
     bank,
     targets,
     mesh,
-    max_query_len: int = 128,
     axis: str = "data",
 ) -> ShardedLoadedDatabase:
     """Pack `targets` into per-device feeder banks and leave every shard
@@ -163,20 +145,18 @@ def load_database_sharded(
 
     Reads are dealt round-robin across the mesh axis (the priority
     encoder's load balancing, ScoreBank_v2.v:141-165, made static); each
-    shard packs exactly like :meth:`ScoreBank.load_database` (same
-    auto-segmentation, same multi-tile drain capacity), pads to the common
-    (T, R) envelope, and the [D, T, N] stack is placed sharded so each
-    device holds only its own streams.  Single-process meshes place via
-    device_put; multi-process deployments shard their local rows the
+    shard packs exactly like :meth:`ScoreBank.load_database`, pads to the
+    common (T, R) envelope, and the [D, T, N] stack is placed sharded so
+    each device holds only its own streams.  Single-process meshes place
+    via device_put; multi-process deployments shard their local rows the
     multihost way (swtpu.parallel.multihost.shard_rows).
 
     Requires the stream backend."""
     import jax
 
     from swtpu.bank.scorebank import _dense_form
-    from swtpu.bank.streams import (
-        LANES, STREAM_PAD, pack_stream_wire, pack_streams, pack_streams_long,
-    )
+    from swtpu.bank.streams import STREAM_PAD, pack_stream_wire, pack_streams
+    from swtpu.device import stream_count
 
     if bank.backend != "stream":
         raise ValueError(
@@ -184,39 +164,24 @@ def load_database_sharded(
             f"{bank.backend!r})"
         )
     D = int(mesh.shape[axis])
-    if max_query_len <= LANES // 4:
-        segments = 4
-    elif max_query_len <= LANES // 2:
-        segments = 2
-    else:
-        segments = 1
-    rows = bank.config.stream_rows
-    if rows == 0:
-        rows = {1: 16, 2: 8, 4: 4}[segments] if not bank._interpret else 1
-    phys = bank.config.stream_phys if not bank._interpret else 8
-    k_max = max(1, -(-int(max_query_len) // LANES))
-    if k_max > 1:
-        probe = np.zeros((k_max * LANES,), np.int8)
-        pack = lambda t, lens: pack_streams_long(
-            probe, t, n_streams=phys, rows=rows, lens=lens
-        )
-    else:
-        probe = np.zeros((1,), np.int8)
-        pack = lambda t, lens: pack_streams(
-            probe, t, n_streams=phys * segments, segments=segments,
-            lens=lens, rows=rows,
-        )
-
     tmat, tlens = _dense_form(targets)
     if tlens is not None:
         n_reads = len(tlens)
         t_lens = np.asarray(tlens, np.int64)
-        shard_pack = lambda d: pack(tmat[d::D], np.asarray(tlens)[d::D])
     else:
         n_reads = len(targets)
         t_lens = np.fromiter((len(t) for t in targets), np.int64, n_reads)
-        shard_pack = lambda d: pack([targets[i] for i in range(d, n_reads, D)],
-                                    None)
+    S = stream_count(-(-n_reads // D), bank.plan)
+    # the stream layout does not depend on the query: pack with an empty one
+    probe = np.zeros((0,), np.int8)
+    if tlens is not None:
+        shard_pack = lambda d: pack_streams(
+            probe, tmat[d::D], S, lens=np.asarray(tlens)[d::D]
+        )
+    else:
+        shard_pack = lambda d: pack_streams(
+            probe, [targets[i] for i in range(d, n_reads, D)], S
+        )
     groups = [list(range(d, n_reads, D)) for d in range(D)]
     batches = [shard_pack(d) for d in range(D)]
     if bank.verify_integrity:
@@ -277,64 +242,25 @@ def load_database_sharded(
         t_lens=t_lens,
         total_chars=int(t_lens.sum()),
         n_reads=n_reads,
-        rows=rows,
-        k_max=k_max,
-        segments=segments,
         mesh=mesh,
         axis=axis,
         n_shards=D,
         penalties=bank.config.penalties,
+        tile=bank.plan.tile,
+        block=bank.plan.block,
         interpret=bank._interpret,
-        state_dtype=bank._stream_dtype(),
         score_width=bank.config.score_width,
         emit_regular=emit_regular,
     )
 
 
-def _query_register(query: np.ndarray, db: ShardedLoadedDatabase):
-    """(register, long_query): the replicated per-dispatch query input —
-    kernel layout [128, S_phys] for single-tile queries, the raw
-    [N, K*128] register for chained tiles.  Mirrors the single-chip
-    LoadedDatabase dispatch contract (capacity / segment errors included)."""
-    from swtpu.bank.streams import LANES
-    from swtpu.ops.common import Q_PAD
-    from swtpu.ops.pallas_stream import _q_kernel_layout
-
-    query = np.asarray(query, np.int8)
-    # stream is [D, T, N]: logical streams on the last axis
-    N = int(np.shape(db.stream)[2])
-    qcap = LANES // db.segments
-    if len(query) <= qcap:
-        q = np.full((N, qcap), Q_PAD, np.int8)
-        q[:, : len(query)] = query[None, :]
-        return _q_kernel_layout(q, db.segments, db.rows), False
-    if db.segments > 1:
-        raise ValueError(
-            f"query of {len(query)} bases exceeds the segmented capacity "
-            f"{qcap} this database was loaded for — reload with a larger "
-            "max_query_len"
-        )
-    K = -(-len(query) // LANES)
-    if K > db.k_max:
-        raise ValueError(
-            f"query of {len(query)} bases needs {K} tiles; database was "
-            f"loaded with max_query_len for {db.k_max} — reload with a "
-            "larger max_query_len"
-        )
-    q = np.full((N, K * LANES), Q_PAD, np.int8)
-    q[:, : len(query)] = query[None, :]
-    return q, True
-
-
-def _get_scorer(db: ShardedLoadedDatabase, long_query: bool, k: int,
-                full_scores: bool):
-    key = (long_query, k, full_scores)
+def _get_scorer(db: ShardedLoadedDatabase, k: int, full_scores: bool):
+    key = (k, full_scores)
     fn = db._scorers.get(key)
     if fn is None:
         fn = db._scorers[key] = make_sharded_loaded_scorer(
-            db.mesh, axis=db.axis, penalties=db.penalties,
-            interpret=db.interpret, segments=db.segments, rows=db.rows,
-            state_dtype=db.state_dtype, k=k, long_query=long_query,
+            db.mesh, axis=db.axis, penalties=db.penalties, tile=db.tile,
+            block=db.block, interpret=db.interpret, k=k,
             full_scores=full_scores, score_width=db.score_width,
             emit_regular=db.emit_regular,
         )
@@ -345,10 +271,16 @@ def dispatch_loaded_sharded(query: np.ndarray, db: ShardedLoadedDatabase,
                             k: int = 0, full_scores: bool = True):
     """Async dispatch of one query over the whole mesh; returns the
     un-materialized device outputs (scores [D, R] and/or top-K)."""
-    reg, long_q = _query_register(query, db)
-    fn = _get_scorer(db, long_q, k, full_scores)
-    return fn(reg, db.stream, db.emit_stream_dev, db.emit_step_dev,
-              db.ids_dev)
+    fn = _get_scorer(db, k, full_scores)
+    return fn(np.asarray(query, np.int8), db.stream, db.emit_stream_dev,
+              db.emit_step_dev, db.ids_dev)
+
+
+def _padded_cells(db: ShardedLoadedDatabase, qlen: int) -> int:
+    from swtpu.bank.scorebank import _padded_cells
+
+    D, T, N = np.shape(db.stream)
+    return D * _padded_cells((T, N), qlen, db.tile)
 
 
 def score_loaded_sharded(bank, query: np.ndarray, db: ShardedLoadedDatabase,
@@ -368,7 +300,6 @@ def finish_loaded_sharded(bank, query: np.ndarray, db: ShardedLoadedDatabase,
     call dispatch under their job lock and finish outside it, so clients
     pipeline)."""
     from swtpu.bank.scorebank import ScoreResult
-    from swtpu.bank.streams import LANES
 
     shard_scores = np.asarray(s_g)  # [D, R]
     scores = np.zeros(db.n_reads, np.int32)
@@ -382,11 +313,7 @@ def finish_loaded_sharded(bank, query: np.ndarray, db: ShardedLoadedDatabase,
             db.penalties.match,
         )
     cells = int(len(query)) * db.total_chars
-    K = max(1, -(-len(query) // LANES))
-    padded = (
-        int(np.shape(db.stream)[0]) * int(np.shape(db.stream)[1])
-        * int(np.shape(db.stream)[2]) * (LANES // db.segments) * K
-    )
+    padded = _padded_cells(db, len(query))
     elapsed = time.perf_counter() - t0
     if event_log is not None:
         from swtpu.utils import BatchEvent
@@ -436,7 +363,6 @@ def score_loaded_many_sharded(
     ScoreBank.score_loaded_many).  Per-result elapsed_s is the batch wall
     time divided evenly."""
     from swtpu.bank.scorebank import ScoreResult
-    from swtpu.bank.streams import LANES
 
     t0 = time.perf_counter()
     devs = [dispatch_loaded_sharded(q, db) for q in queries]
@@ -448,11 +374,7 @@ def score_loaded_many_sharded(
         scores = np.zeros(db.n_reads, np.int32)
         scores[db.ids_host[live]] = m[live]
         cells = int(len(q)) * db.total_chars
-        K = max(1, -(-len(q) // LANES))
-        padded = (
-            int(np.shape(db.stream)[0]) * int(np.shape(db.stream)[1])
-            * int(np.shape(db.stream)[2]) * (LANES // db.segments) * K
-        )
+        padded = _padded_cells(db, len(q))
         if event_log is not None:
             from swtpu.utils import BatchEvent
 

@@ -45,19 +45,10 @@ class SWConfig:
 
     Attributes:
       penalties: scoring penalties (see :class:`Penalties`).
-      max_query_len: static query capacity of one kernel invocation — the
-        analog of the PE-chain ``LENGTH`` parameter (128 in the ScoreBank,
-        256 in the CAPI sample, ScoreBank/ScoringModule_v1.1.v:17,
-        capi_sample_aligner/hdl-verliog/afu.v:340).  Queries longer than one
-        lane tile are handled by query-tile chaining in the kernel (the
-        analog of the reference's reserved chaining ports,
-        ScoreBank/ScoringModule_v1.1.v:36-54).
-      target_buckets: static target-length buckets the packer rounds reads up
-        to — the analog of ``TARGET_LENGTH`` (ScoreBank/ScoreBank_v2.v:16).
-      block_pairs: alignment pairs per kernel block (batch tile).
-      score_dtype: accumulator dtype; int32 by default (exact for any
-        realistic sequence; the 12-bit biased RTL arithmetic is a hardware
-        economy, not a semantic requirement — SURVEY.md §0).
+      target_buckets: static target-length buckets the scan path rounds
+        reads up to — the analog of ``TARGET_LENGTH``
+        (ScoreBank/ScoreBank_v2.v:16).
+      query_buckets: the scan path's query-length buckets for pairs.
       mesh_shape / mesh_axes: device mesh for data-parallel database
         sharding (the multi-module / multi-card scaling axis; the analog of
         ``MODULES`` in ScoreBank/ScoreBank_v2.v:17).
@@ -71,26 +62,20 @@ class SWConfig:
     """
 
     penalties: Penalties = DEFAULT_PENALTIES
-    max_query_len: int = 128
     target_buckets: Sequence[int] = (32, 128, 512, 2048)
-    # queries get their own bucket ladder (score_pairs groups by both); the
-    # top rung matches LEN_WIDTH=12 -> 4095-base intent (ScoreBank_v2.v:14-15)
+    # the top rung matches LEN_WIDTH=12 -> 4095-base intent (ScoreBank_v2.v:14-15)
     query_buckets: Sequence[int] = (32, 128, 512, 2048, 4096)
-    block_pairs: int = 1024
-    score_dtype: str = "int32"
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("data",)
     seed: int = 0
     strict_n_parity: bool = True
     # ship stream batches host->device 2-bit packed (4 bases/byte + flag
     # bitmap), expanding on device — the reference's transfer packing
-    # (aligner_Header.c:30-41); cuts H2D 3.2x on tunnel-limited links
+    # (aligner_Header.c:30-41); cuts host-to-device bytes 3.2x
     wire_2bit: bool = True
-    # query rows folded per VPU sublane in the stream kernel (the multi-row
-    # wavefront, swtpu/ops/pallas_stream.py): amortizes sublane rolls by
-    # `rows`.  0 = auto (pick the fastest measured config for the segment
-    # count); 1 = classic one-row wavefront.
-    stream_rows: int = 0
+    # query rows one thread of the stream kernel holds (longer queries
+    # chain tiles); 0 = the platform table's (swtpu.device)
+    stream_tile: int = 0
     # reads per pipelined stream dispatch in score_database (0 = one
     # monolithic dispatch).  With chunking, the host packs chunk i+1 while
     # chunk i's H2D + kernel are in flight (JAX async dispatch) — the
@@ -99,20 +84,12 @@ class SWConfig:
     # a power-of-two ladder so every equal rung reuses one compiled
     # executable.
     stream_chunk_reads: int = 0
-    # physical lane columns (streams) per stream-kernel invocation.  512 is
-    # the measured sweet spot for the rows=16 flagship kernel
-    # (BENCH_NOTES.md: S=256/512/1024); logical streams = stream_phys x
-    # segments.  Decoupled from block_pairs (a column-kernel batch knob) so
-    # tuning one never silently resizes the other's VMEM footprint.
-    stream_phys: int = 512
-    # DP state dtype in the stream kernel.  "auto" = float32 on hardware
-    # (exact for every reachable score — integers far inside the 2^24
-    # mantissa — and measured ~15% faster than int32 at rows=16,
-    # BENCH_NOTES.md), int32 in interpret/test mode.
-    stream_state_dtype: str = "auto"
+    # most streams one stream-kernel dispatch packs a database into;
+    # 0 = the platform table's (swtpu.device)
+    streams: int = 0
     # SCORE_WIDTH wrap-parity: when set, score in the RTL's W-bit biased
     # register arithmetic including overflow wrap + sign-bit clamp
-    # (SW_ProcessingElement_v1.0.v:15-20) — routes through the column
-    # kernel's int16_biased mode.  None (default) = exact int32 scoring,
-    # which is bit-identical to the 12-bit hardware for in-range scores.
+    # (SW_ProcessingElement_v1.0.v:15-20), on either backend.  None
+    # (default) = exact int32 scoring, which is bit-identical to the 12-bit
+    # hardware for in-range scores.
     score_width: Optional[int] = None

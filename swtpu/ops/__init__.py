@@ -7,24 +7,14 @@ __all__ = [
     "pad_to_static",
     "sentinel_pad_batch",
     "sw_scores_scan",
-    "sw_scores_pallas",
-    "sw_scores_pallas_lane",
-    "sw_scores_stream_strip",
+    "sw_scores_stream",
 ]
 
 
 def __getattr__(name):
-    # pallas kernels import lazily so CPU-only use never touches pallas
-    if name == "sw_scores_pallas":
-        from swtpu.ops.pallas_kernel import sw_scores_pallas
+    # the Pallas kernel imports lazily so scan-only use never touches pallas
+    if name == "sw_scores_stream":
+        from swtpu.ops.pallas_stream import sw_scores_stream
 
-        return sw_scores_pallas
-    if name == "sw_scores_pallas_lane":
-        from swtpu.ops.pallas_lane import sw_scores_pallas_lane
-
-        return sw_scores_pallas_lane
-    if name == "sw_scores_stream_strip":
-        from swtpu.ops.pallas_stream import sw_scores_stream_strip
-
-        return sw_scores_stream_strip
+        return sw_scores_stream
     raise AttributeError(name)

@@ -1,38 +1,36 @@
-"""Pallas TPU kernel: streamed anti-diagonal wavefront ("systolic" form).
+"""Streamed Smith-Waterman wavefront: a Pallas kernel for the GPU (Triton).
 
-This is the closest TPU relative of the reference's actual hardware design —
-and the fastest formulation, because it eliminates the per-column max-plus
-prefix scan entirely:
+The reference's feeders shift each module's targets back-to-back through a
+chain of processing elements, one query base per PE (ScoreBank/
+ScoringModule_v1.1.v:155-235).  Here every GPU thread is one such feeder
+lane ("stream"): the host concatenates a stream's targets back-to-back,
+marking each target's first char with FLAG_BIT (swtpu.bank.streams), and
+the thread walks the stream one target char per step.  A step computes one
+whole DP column of a query tile, row by row, in the thread's registers: the
+PE chain folded into one thread, so the up-neighbour hand-off never leaves
+the register file and a read's score is ready at its own last char (no
+emission drain).
 
-  FPGA (ScoreBank/ScoringModule_v1.1.v)     swtpu stream kernel
-  --------------------------------------    ----------------------------------
-  one PE per query base (chain of 128)      one VPU *sublane row* per query base
-  target bases shift 1 PE/cycle             char register rolls 1 row/step
-  M/I/High per-PE registers                 M/I/H arrays [128, streams]
-  feeders stream targets back-to-back       concatenated target streams
-  per-toggle ID FIFOs pair results          host-computed emission indices
-  High ripples down the chain               H rolls with the data
+Layout: streams on the minor axis everywhere ([T, N] stream, [L, N] query
+rows, [T, N] strips), so each step's loads and stores are coalesced across
+the threads of a warp.  The grid runs over blocks of `block` streams and
+is parallel; the T-step loop runs inside the block.
 
-Layout: query positions on sublanes (axis 0), streams on lanes (axis 1) —
-chosen so the per-step char injection is a natural row write and the
-per-chunk stream/strip blocks [STEP_CHUNK, S] satisfy the TPU block-shape
-rules (last dim = S = lane multiple).
+Reduced-op state (algebraically identical to carrying M/I):
+  D = max(M, I)            — all the diagonal ever reads (one step back)
+  G = max(M + (oe-e), I)   — the merged-I gap source:
+    I_new = max(max(M_up,M_left)+oe, max(I_up,I_left)+e)
+          = max(G_up, G_left) + e
+  boundary G := 0 is exact: a boundary neighbour has M=0, I=0, so its gap
+  contribution is max(oe, e) = e = (G=0) + e; and since M>=0, interior
+  G >= oe-e, so the clamp never clips a real value.
 
-Every (row, lane) computes one DP cell per step (cell (i, j) on the
-wavefront j = step - i), so cells/step = 128 x streams with no prefix scan
-and ~100% pipe utilization on ragged targets.
-
-Streams are the reference's feeder lanes: the host concatenates each
-stream's targets back-to-back (swtpu.bank.streams), marking each target's
-first char with flag bit 3.  Boundary resets are data-driven by that flag —
-the vectorized equivalent of the feeder's en/ld handshake.  The kernel
-writes the H[row 127] history strip; scores gather at step off + len - 1 +
-127 (on device, sw_scores_stream).
-
-State persists across step-chunks in VMEM scratch (the grid dimension only
-streams the char/strip blocks through), so stream length is unbounded — the
-realization of the reference's reserved module-chaining ports
-(ScoreBank/ScoringModule_v1.1.v:36-54).
+Queries longer than one tile chain tiles (the reference's reserved
+chaining ports, ScoreBank/ScoringModule_v1.1.v:36-54): a tile writes its
+last row's D/G per step and the next tile's row 0 reads them as its
+up-neighbour.  The running best score is a max over columns and rows, so
+each tile keeps its own per-read maximum and the read's score is the max
+over tiles.
 """
 
 from __future__ import annotations
@@ -42,772 +40,134 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from swtpu.config import DEFAULT_PENALTIES, Penalties
+from swtpu.ops.common import Q_PAD
 
-LANES = 128  # query capacity (sublane rows of the wavefront register file)
 FLAG_BIT = 8  # first-char-of-target marker in the stream bytes
-DRAIN = LANES - 1
-# steps per grid chunk: bounds the unrolled kernel body (compile time) while
-# the grid pipelines the char/strip block streaming
+# packers round stream length T up to this (the 2-bit wire packs 8 chars
+# per flag byte; the chunked path's power-of-two ladder starts here)
 STEP_CHUNK = 32
 
 
-def _stream_kernel(
-    q_ref, s_ref, out_ref, gp, d1p, d2p, hp, cp, ap=None, *, ma, mi, go, ge,
-    seg, dt=None, tail_acc=False, biased_width=None,
-):
-    """seg: query segments per lane column.  seg=1 uses all 128 rows for one
-    query; seg=G packs G independent queries of <=128/G bases per column
-    (each with its own char stream), quadrupling utilization for short-query
-    workloads (G=4 covers the reference's 32nt datasets at 100% occupancy).
-    Segment heads behave exactly like the chain head (boundary ties)."""
-    S = q_ref.shape[1]
-    chunk = s_ref.shape[0]  # stream block is [chunk, seg*S]
-    qcap = LANES // seg
-    dt = dt or jnp.int32
-    zero = jnp.array(0, dt)
-    if biased_width is not None:
-        # SCORE_WIDTH wrap-parity (SW_ProcessingElement_v1.0.v:15-20) on
-        # the flagship wavefront: state holds W-bit *biased unsigned*
-        # values (score + 2^(W-1)) in 32-bit lanes.  Only the M update
-        # wraps (& mask) + sign-bit clamps; the I/G chain provably never
-        # wraps step-wise (every cell's merged-I includes an
-        # M + open + extend candidate with M >= ZERO, so
-        # I in [ZERO+open+extend, mask]) — identical reasoning to the
-        # column kernel's int16_biased mode (pallas_kernel.py).
-        mask = jnp.array((1 << biased_width) - 1, dt)
-        zbit = jnp.array(1 << (biased_width - 1), dt)
-        zero = zbit
-    c = pl.program_id(0)
-    # masks always build in int32 (modulo/compare support), whatever dt is
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (LANES, 1), 0)
-    seghead = row_iota % qcap == 0
+def _wavefront_kernel(*refs, ma, mi, go, ge, width, chain_in, chain_out):
+    """One tile of query rows against `block` streams, all T steps.
 
-    @pl.when(c == 0)
-    def _init():
-        z = jnp.full((LANES, S), zero, dt)
-        gp[...] = z
-        d1p[...] = z
-        d2p[...] = z
-        hp[...] = z
-        cp[...] = jnp.full((LANES, S), 4, jnp.int32)  # sentinel-filled pipe
-        if tail_acc:
-            ap[...] = jnp.full(ap.shape, zero, dt)
+    refs: q [tile, B] int8, stream [T, B] int8, (bD, bG [T, B] int32 if
+    chain_in), acc [T, B] int32, (oD, oG [T, B] int32 if chain_out)."""
+    q_ref, s_ref = refs[:2]
+    k = 2
+    if chain_in:
+        bd_ref, bg_ref = refs[2:4]
+        k = 4
+    acc_ref = refs[k]
+    if chain_out:
+        od_ref, og_ref = refs[k + 1 : k + 3]
+    T, B = s_ref.shape
+    tile = q_ref.shape[0]
+    # boundary value: 0 exact; in wrap mode the RTL's ZERO = 2^(W-1)
+    # (SW_ProcessingElement_v1.0.v:15-20)
+    zero = 0 if width is None else 1 << (width - 1)
+    z = jnp.full((B,), zero, jnp.int32)
+    qs = [q_ref[r, :].astype(jnp.int32) for r in range(tile)]
 
-    # char pipe stays integer whatever the score-state dtype is (flag bit
-    # tests and &7 are bitwise)
-    q = q_ref[...].astype(jnp.int32)
-    sc = s_ref[...].astype(jnp.int32)
-    # Reduced-op state (algebraically identical to carrying M/I/M2/I2):
-    #   D = max(M, I)            — all the diagonal ever reads (carried 2 back)
-    #   G = max(M + (oe-e), I)   — the merged-I gap source (carried 1 back):
-    #     I_new = max(max(M_up,M_left)+oe, max(I_up,I_left)+e)
-    #           = max(G_up, G_left) + e
-    #   boundary G := 0 is exact: a boundary neighbour has M=0, I=0, so its
-    #   gap contribution is max(oe, e) = e = (G=0) + e; and since M>=0,
-    #   interior G >= oe-e, so the clamp never clips a real value.
-    Gp, D1, D2, Hp, C = gp[...], d1p[...], d2p[...], hp[...], cp[...]
-    # per-segment tail accumulators live as values during the chunk and are
-    # stored back to the (8, S) scratch at the end (no scatter: static rows)
-    acc = [ap[g, :] if tail_acc else None for g in range(seg)]
-    oeme = jnp.array(go, dt)  # oe - e == go + ge - ge == go
-    gext = jnp.array(ge, dt)
-    strip_rows = []
+    def m_update(x):
+        if width is None:
+            return jnp.maximum(x, 0)
+        # SCORE_WIDTH wrap-parity: state holds W-bit biased unsigned values
+        # (score + 2^(W-1)) in 32-bit lanes.  Only the M update wraps
+        # (& mask) and clamps on the sign bit; the I/G chain provably never
+        # wraps (every cell's merged-I includes an M + open + extend
+        # candidate with M >= ZERO, so I stays in [ZERO+open+extend, mask]).
+        ms = x & ((1 << width) - 1)
+        return jnp.where((ms & zero) != 0, ms, zero)
 
-    for r in range(chunk):
-        # advance the systolic pipe: each segment's new char enters its head row
-        C = pltpu.roll(C, 1, axis=0)
-        for g in range(seg):
-            newc = sc[r : r + 1, g * S : (g + 1) * S]
-            C = jnp.where(row_iota == g * qcap, newc, C)
-        f0 = C >= FLAG_BIT
-        cval = C & 7
-        s = jnp.where(cval == q, ma, mi).astype(dt)
-        # diagonal: neighbours' best two steps back; zero at segment heads
-        # (chain-head ties, SW_ProcessingElement_v1.0.v:156-164) and at
-        # target starts (column -1)
-        bmask = jnp.logical_or(seghead, f0)
-        diag = jnp.where(bmask, zero, pltpu.roll(D2, 1, axis=0))
-        if biased_width is None:
-            Mc = jnp.maximum(diag + s, 0)
+    def step(t, carry):
+        D, G, acc, d_up = carry
+        c = s_ref[t, :].astype(jnp.int32)
+        f0 = c >= FLAG_BIT  # target start: column -1 is the zero boundary
+        cv = c & 7
+        if chain_in:
+            # row 0's up-neighbour is the previous tile's last row: its G
+            # at this column, its D one column back
+            g_up = bg_ref[t, :]
+            diag = jnp.where(f0, zero, d_up)
+            d_up = bd_ref[t, :]
         else:
-            ms = (diag + s) & mask  # the RTL's W-bit adder wrap
-            Mc = jnp.where((ms & zbit) != 0, ms, zbit)  # sign-bit clamp
-        # merged in-del via the gap source
-        G_up = jnp.where(seghead, zero, pltpu.roll(Gp, 1, axis=0))
-        G_left = jnp.where(f0, zero, Gp)
-        Ic = jnp.maximum(G_up, G_left) + gext
-        if tail_acc:
-            # pure down-ripple: at the segment tail row, step t carries the
-            # max of exactly one DP column (every row's contribution at step
-            # t was computed from the char injected at step t - row, i.e.
-            # the same char for all rows).  A per-tail accumulator with a
-            # flag-driven reset then integrates the per-column maxes — two
-            # full-plane ops cheaper per step than the own-carry ripple.
-            Hc = jnp.maximum(jnp.where(seghead, zero, pltpu.roll(Hp, 1, axis=0)), Mc)
-            tails = []
-            for g in range(seg):
-                tr = (g + 1) * qcap - 1
-                a = jnp.maximum(
-                    jnp.where(f0[tr, :], zero, acc[g]), Hc[tr, :]
-                )
-                acc[g] = a
-                emit = a if biased_width is None else a - zero
-                tails.append(emit[None, :].astype(jnp.int32))
-            strip_rows.append(
-                tails[0] if seg == 1 else jnp.concatenate(tails, axis=1)
-            )
-        else:
-            # high score ripples with the data; own register resets at
-            # target start
-            H_in = jnp.where(seghead, zero, pltpu.roll(Hp, 1, axis=0))
-            H_own = jnp.where(f0, zero, Hp)
-            Hc = jnp.maximum(jnp.maximum(H_in, H_own), Mc)
-            # capture each segment's tail row for the emission strip
-            He = Hc if biased_width is None else Hc - zero
-            tails = [
-                He[(g + 1) * qcap - 1 : (g + 1) * qcap, :].astype(jnp.int32)
-                for g in range(seg)
-            ]
-            strip_rows.append(
-                tails[0] if seg == 1 else jnp.concatenate(tails, axis=1)
-            )
-        D2 = D1
-        D1 = jnp.maximum(Mc, Ic)
-        Gp = jnp.maximum(Mc + oeme, Ic)
-        Hp = Hc
+            g_up = z
+            diag = z
+        h = z
+        new_d, new_g = [], []
+        for r in range(tile):
+            if r:
+                diag = jnp.where(f0, zero, D[r - 1])
+                g_up = new_g[r - 1]
+            m = m_update(diag + jnp.where(cv == qs[r], ma, mi))
+            i = jnp.maximum(g_up, jnp.where(f0, zero, G[r])) + ge
+            h = jnp.maximum(h, m)
+            new_d.append(jnp.maximum(m, i))
+            new_g.append(jnp.maximum(m + go, i))
+        # per-read running best: reset at each target start
+        acc = jnp.maximum(jnp.where(f0, zero, acc), h)
+        acc_ref[t, :] = acc
+        if chain_out:
+            od_ref[t, :] = new_d[-1]
+            og_ref[t, :] = new_g[-1]
+        return tuple(new_d), tuple(new_g), acc, d_up
 
-    out_ref[...] = jnp.concatenate(strip_rows, axis=0)
-    gp[...] = Gp
-    d1p[...] = D1
-    d2p[...] = D2
-    hp[...] = Hp
-    cp[...] = C
-    if tail_acc:
-        for g in range(seg):
-            ap[g, :] = acc[g]
+    init = ((z,) * tile, (z,) * tile, z, z)
+    jax.lax.fori_loop(0, T, step, init)
 
 
-def _stream_kernel_mr(
-    q_ref, s_ref, out_ref, gp, d1p, d2p, hp, cp, ap, *, ma, mi, go, ge,
-    seg, R, dt=None, biased_width=None,
-):
-    """Multi-row wavefront: R consecutive query rows fold into each sublane
-    row (sublane k, sub-row r  <->  query row k*R + r), so the intra-step
-    chain r-1 -> r stays IN PLACE and only the r = R-1 -> 0 handoff crosses
-    sublanes.  Sublane rolls — measured at >half the kernel's step time
-    (experiments/kernel_ablate.py) — shrink by R: 3 rolls on (128/R, S)
-    planes per step instead of 4 on (128, S).  Boundary selects also apply
-    only to sub-row 0 (segment heads are always sub-row 0 rows).
-
-    This is the TPU form of folding multiple PEs into one (the chaining /
-    folded-array idea the reference reserved ports for,
-    ScoreBank/ScoringModule_v1.1.v:36-54) — same recurrence, same emission
-    contract, drain = 128/(R*seg) - 1 steps.
-    """
-    S = q_ref.shape[1]
-    chunk = s_ref.shape[0]
-    SL = LANES // R  # physical sublane rows
-    SLg = SL // seg  # sublanes per segment
-    dt = dt or jnp.int32
-    zero = jnp.array(0, dt)
-    if biased_width is not None:
-        # W-bit biased wrap-parity; see _stream_kernel's note
-        mask = jnp.array((1 << biased_width) - 1, dt)
-        zbit = jnp.array(1 << (biased_width - 1), dt)
-        zero = zbit
-    c = pl.program_id(0)
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (SL, 1), 0)
-    seghead = row_iota % SLg == 0
-
-    @pl.when(c == 0)
-    def _init():
-        z = jnp.full((LANES, S), zero, dt)
-        gp[...] = z
-        d1p[...] = z
-        d2p[...] = jnp.full((SL, S), zero, dt)
-        hp[...] = jnp.full((SL, S), zero, dt)
-        cp[...] = jnp.full((SL, S), 4, jnp.int32)
-        ap[...] = jnp.full(ap.shape, zero, dt)
-
-    qs = [q_ref[r * SL : (r + 1) * SL, :].astype(jnp.int32) for r in range(R)]
-    sc = s_ref[...].astype(jnp.int32)
-    G = [gp[r * SL : (r + 1) * SL, :] for r in range(R)]
-    D = [d1p[r * SL : (r + 1) * SL, :] for r in range(R)]
-    D2L = d2p[...]  # D of sub-row R-1, two steps back
-    Hl = hp[...]  # H of sub-row R-1, one step back
-    C = cp[...]
-    acc = [ap[g, :] for g in range(seg)]
-    oeme = jnp.array(go, dt)
-    gext = jnp.array(ge, dt)
-    strip_rows = []
-
-    for step in range(chunk):
-        C = pltpu.roll(C, 1, axis=0)
-        for g in range(seg):
-            newc = sc[step : step + 1, g * S : (g + 1) * S]
-            C = jnp.where(row_iota == g * SLg, newc, C)
-        f0 = C >= FLAG_BIT
-        cval = C & 7
-        # sub-row 0: neighbours live one sublane up (rolled, 1 or 2 steps
-        # back); segment heads tie to the zero boundary
-        s0 = jnp.where(cval == qs[0], ma, mi).astype(dt)
-        bmask = jnp.logical_or(seghead, f0)
-        diag = jnp.where(bmask, zero, pltpu.roll(D2L, 1, axis=0))
-        if biased_width is None:
-            Mc = jnp.maximum(diag + s0, 0)
-        else:
-            ms = (diag + s0) & mask
-            Mc = jnp.where((ms & zbit) != 0, ms, zbit)
-        G_up = jnp.where(seghead, zero, pltpu.roll(G[R - 1], 1, axis=0))
-        G_left = jnp.where(f0, zero, G[0])
-        Ic = jnp.maximum(G_up, G_left) + gext
-        Hcur = jnp.maximum(
-            jnp.where(seghead, zero, pltpu.roll(Hl, 1, axis=0)), Mc
-        )
-        newD = [jnp.maximum(Mc, Ic)]
-        newG = [jnp.maximum(Mc + oeme, Ic)]
-        # sub-rows 1..R-1: all dependencies in place (previous step's own
-        # planes, or this step's r-1 results); only the target-start reset
-        # (f0) applies — segment heads are never here
-        for r in range(1, R):
-            sr = jnp.where(cval == qs[r], ma, mi).astype(dt)
-            diag_r = jnp.where(f0, zero, D[r - 1])
-            if biased_width is None:
-                Mc = jnp.maximum(diag_r + sr, 0)
-            else:
-                ms = (diag_r + sr) & mask
-                Mc = jnp.where((ms & zbit) != 0, ms, zbit)
-            G_left = jnp.where(f0, zero, G[r])
-            Ic = jnp.maximum(newG[r - 1], G_left) + gext
-            Hcur = jnp.maximum(Hcur, Mc)
-            newD.append(jnp.maximum(Mc, Ic))
-            newG.append(jnp.maximum(Mc + oeme, Ic))
-        D2L = D[R - 1]
-        D = newD
-        G = newG
-        Hl = Hcur
-        tails = []
-        for g in range(seg):
-            tr = (g + 1) * SLg - 1
-            a = jnp.maximum(jnp.where(f0[tr, :], zero, acc[g]), Hcur[tr, :])
-            acc[g] = a
-            emit = a if biased_width is None else a - zero
-            tails.append(emit[None, :].astype(jnp.int32))
-        strip_rows.append(
-            tails[0] if seg == 1 else jnp.concatenate(tails, axis=1)
-        )
-
-    out_ref[...] = jnp.concatenate(strip_rows, axis=0)
-    for r in range(R):
-        gp[r * SL : (r + 1) * SL, :] = G[r]
-        d1p[r * SL : (r + 1) * SL, :] = D[r]
-    d2p[...] = D2L
-    hp[...] = Hl
-    cp[...] = C
-    for g in range(seg):
-        ap[g, :] = acc[g]
-
-
-def _stream_kernel_mr_chained(
-    q_ref, s_ref, bd_ref, bg_ref, bh_ref,
-    out_ref, od_ref, og_ref, oh_ref,
-    gp, d1p, d2p, hp, cp, ap, *, ma, mi, go, ge, R, dt=None,
-    biased_width=None,
-):
-    """Multi-row wavefront tile with query-tile chaining (segments=1 only).
-
-    The realization of the reference's reserved module-chaining ports
-    (ScoreBank/ScoringModule_v1.1.v:36-54) on the fast kernel: this tile
-    holds 128 consecutive query rows; row 0 consumes the previous tile's
-    row-127 state from boundary strips instead of the zero boundary, and the
-    tile emits its own row-127 D/G/H per step for the next tile.
-
-    Alignment (host-applied shifts, sw_scores_stream_long): cell
-    (tile_row 0, col j) computes at step t = j and needs the upper tile's
-    col j (G, H: its step j + SL-1) and col j-1 (D: step j + SL-2), so
-    bG/bH[t] = oG/oH[t + SL-1] and bD[t] = oD[t + SL-2] of the tile above.
-    The H ripple is per-column (fixed j = t - sublane), so it chains across
-    tiles with no read-boundary handling; the tail accumulator (emission)
-    only matters on the last tile."""
-    S = q_ref.shape[1]
-    chunk = s_ref.shape[0]
-    SL = LANES // R
-    dt = dt or jnp.int32
-    zero = jnp.array(0, dt)
-    if biased_width is not None:
-        # SCORE_WIDTH wrap-parity ACROSS query-tile chains: the state, the
-        # boundary strips, and the carry are all W-bit biased unsigned
-        # values; only the M update wraps (& mask) + sign-bit clamps, same
-        # proof as _stream_kernel / _stream_kernel_mr.  The inter-tile
-        # G/H/D hand-off is value-identical to the in-tile roll, so the
-        # chaining needs no extra wrap handling.
-        mask = jnp.array((1 << biased_width) - 1, dt)
-        zbit = jnp.array(1 << (biased_width - 1), dt)
-        zero = zbit
-    c = pl.program_id(0)
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (SL, 1), 0)
-    row0 = row_iota == 0
-
-    @pl.when(c == 0)
-    def _init():
-        z = jnp.full((LANES, S), zero, dt)
-        gp[...] = z
-        d1p[...] = z
-        d2p[...] = jnp.full((SL, S), zero, dt)
-        hp[...] = jnp.full((SL, S), zero, dt)
-        cp[...] = jnp.full((SL, S), 4, jnp.int32)
-        ap[...] = jnp.full(ap.shape, zero, dt)
-
-    qs = [q_ref[r * SL : (r + 1) * SL, :].astype(jnp.int32) for r in range(R)]
-    sc = s_ref[...].astype(jnp.int32)
-    bD = bd_ref[...].astype(dt)
-    bG = bg_ref[...].astype(dt)
-    bH = bh_ref[...].astype(dt)
-    G = [gp[r * SL : (r + 1) * SL, :] for r in range(R)]
-    D = [d1p[r * SL : (r + 1) * SL, :] for r in range(R)]
-    D2L = d2p[...]
-    Hl = hp[...]
-    C = cp[...]
-    acc = ap[0, :]
-    oeme = jnp.array(go, dt)
-    gext = jnp.array(ge, dt)
-    strip_rows, od_rows, og_rows, oh_rows = [], [], [], []
-
-    for step in range(chunk):
-        C = pltpu.roll(C, 1, axis=0)
-        newc = sc[step : step + 1, :]
-        C = jnp.where(row0, newc, C)
-        f0 = C >= FLAG_BIT
-        cval = C & 7
-        # sub-row 0: row 0 of the tile takes the boundary strips, rows > 0
-        # take the rolled in-tile neighbours
-        s0 = jnp.where(cval == qs[0], ma, mi).astype(dt)
-        diag = jnp.where(
-            f0, zero,
-            jnp.where(row0, bD[step : step + 1, :], pltpu.roll(D2L, 1, axis=0)),
-        )
-        if biased_width is None:
-            Mc = jnp.maximum(diag + s0, 0)
-        else:
-            ms = (diag + s0) & mask  # the RTL's W-bit adder wrap
-            Mc = jnp.where((ms & zbit) != 0, ms, zbit)  # sign-bit clamp
-        G_up = jnp.where(
-            row0, bG[step : step + 1, :], pltpu.roll(G[R - 1], 1, axis=0)
-        )
-        G_left = jnp.where(f0, zero, G[0])
-        Ic = jnp.maximum(G_up, G_left) + gext
-        Hcur = jnp.maximum(
-            jnp.where(row0, bH[step : step + 1, :], pltpu.roll(Hl, 1, axis=0)),
-            Mc,
-        )
-        newD = [jnp.maximum(Mc, Ic)]
-        newG = [jnp.maximum(Mc + oeme, Ic)]
-        for r in range(1, R):
-            sr = jnp.where(cval == qs[r], ma, mi).astype(dt)
-            diag_r = jnp.where(f0, zero, D[r - 1])
-            if biased_width is None:
-                Mc = jnp.maximum(diag_r + sr, 0)
-            else:
-                ms = (diag_r + sr) & mask
-                Mc = jnp.where((ms & zbit) != 0, ms, zbit)
-            G_left = jnp.where(f0, zero, G[r])
-            Ic = jnp.maximum(newG[r - 1], G_left) + gext
-            Hcur = jnp.maximum(Hcur, Mc)
-            newD.append(jnp.maximum(Mc, Ic))
-            newG.append(jnp.maximum(Mc + oeme, Ic))
-        D2L = D[R - 1]
-        D = newD
-        G = newG
-        Hl = Hcur
-        tr = SL - 1
-        a = jnp.maximum(jnp.where(f0[tr, :], zero, acc), Hcur[tr, :])
-        acc = a
-        strip_rows.append(a[None, :].astype(jnp.int32))
-        od_rows.append(newD[R - 1][tr : tr + 1, :].astype(jnp.int32))
-        og_rows.append(newG[R - 1][tr : tr + 1, :].astype(jnp.int32))
-        oh_rows.append(Hcur[tr : tr + 1, :].astype(jnp.int32))
-
-    out_ref[...] = jnp.concatenate(strip_rows, axis=0)
-    od_ref[...] = jnp.concatenate(od_rows, axis=0)
-    og_ref[...] = jnp.concatenate(og_rows, axis=0)
-    oh_ref[...] = jnp.concatenate(oh_rows, axis=0)
-    for r in range(R):
-        gp[r * SL : (r + 1) * SL, :] = G[r]
-        d1p[r * SL : (r + 1) * SL, :] = D[r]
-    d2p[...] = D2L
-    hp[...] = Hl
-    cp[...] = C
-    ap[0, :] = acc
-
-
-def _strip_call_chained(
-    qT, streamT, bD, bG, bH, ma, mi, go, ge, interpret,
-    state_dtype="int32", rows=1, chunk=None, score_width=None,
-):
-    """One chained tile: qT [128, S], streamT [T, S], boundary strips
-    [T, S] -> (acc_strip, oD, oG, oH), each [T, S] int32 (biased domain
-    throughout when score_width is set — the caller unbiases at gather)."""
-    S = qT.shape[1]
-    T = streamT.shape[0]
-    if chunk is None:
-        # 16-step bodies compile fast on the round-5 toolchain and run the
-        # K=4 chain at 341.7 vs 320.4 GCUPS (campaign_r5f long_k4_c16)
-        chunk = 8 if interpret else 16
-    nc = T // chunk
-    dt = jnp.dtype(state_dtype).type if state_dtype != "int32" else jnp.int32
-    acc_rows = 16 if jnp.dtype(dt).itemsize == 2 else 8
-    SL = LANES // rows
+def _tile_call(qt, sk, bd, bg, *, penalties, block, interpret, width,
+               chain_out):
+    """One tile: qt [tile, N] int8, sk [T, N] int8, optional boundary
+    strips -> acc strip [T, N] (+ last-row D/G strips if chain_out)."""
+    ma, mi, go, ge = penalties.astuple()
+    T, N = sk.shape
+    chain_in = bd is not None
+    spec = lambda rows: pl.BlockSpec((rows, block), lambda i: (0, i))
+    ins = [qt, sk] + ([bd, bg] if chain_in else [])
+    in_specs = [spec(qt.shape[0]), spec(T)] + [spec(T)] * (2 * chain_in)
+    n_out = 3 if chain_out else 1
     kernel = functools.partial(
-        _stream_kernel_mr_chained, ma=ma, mi=mi, go=go, ge=ge, R=rows, dt=dt,
-        biased_width=score_width,
+        _wavefront_kernel, ma=ma, mi=mi, go=go, ge=ge, width=width,
+        chain_in=chain_in, chain_out=chain_out,
     )
-    scratch = [
-        pltpu.VMEM((LANES, S), dt),
-        pltpu.VMEM((LANES, S), dt),
-        pltpu.VMEM((SL, S), dt),
-        pltpu.VMEM((SL, S), dt),
-        pltpu.VMEM((SL, S), jnp.int32),
-        pltpu.VMEM((acc_rows, S), dt),
-    ]
-    blk = lambda: pl.BlockSpec((chunk, S), lambda c: (c, 0), memory_space=pltpu.VMEM)
     outs = pl.pallas_call(
         kernel,
-        grid=(nc,),
-        in_specs=[
-            pl.BlockSpec((LANES, S), lambda c: (0, 0), memory_space=pltpu.VMEM),
-            blk(), blk(), blk(), blk(),
-        ],
-        out_specs=[blk(), blk(), blk(), blk()],
-        out_shape=[jax.ShapeDtypeStruct((T, S), jnp.int32)] * 4,
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=26 * S * LANES * T, bytes_accessed=(S * T) * 33,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)
+        grid=(N // block,),
+        in_specs=in_specs,
+        out_specs=[spec(T)] * n_out,
+        out_shape=[jax.ShapeDtypeStruct((T, N), jnp.int32)] * n_out,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(block // 32, 8)), num_stages=1
         ),
         interpret=interpret,
-    )(
-        qT.astype(jnp.int8), streamT.astype(jnp.int8),
-        bD.astype(jnp.int32), bG.astype(jnp.int32), bH.astype(jnp.int32),
-    )
-    return outs
+        name="sw_wavefront",
+    )(*ins)
+    return outs if chain_out else (outs[0], None, None)
 
 
-def _shift_steps(x, k, fill=0):
-    """x[t] <- x[t + k], fill-padded at the tail (step-axis left shift).
-    `fill` is the boundary-zero value: 0 exact, the bias in wrap mode."""
-    return jnp.pad(x[k:], ((0, k), (0, 0)), constant_values=fill)
+def tile_rows(qlen: int, tile: int):
+    """(K, height): a query of `qlen` rows runs as K chained tiles of equal
+    height at most `tile`, so a short query takes a short tile."""
+    K = -(-max(qlen, 1) // tile)
+    return K, -(-max(qlen, 1) // K)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "state_dtype", "rows", "score_width",
-        "emit_regular", "chunk",
-    ),
-)
-def sw_scores_stream_long(
-    q: jnp.ndarray,
-    stream: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    state_dtype: str = "int32",
-    rows: int = 16,
-    score_width=None,
-    emit_regular=None,
-    chunk=None,
-) -> jnp.ndarray:
-    """Streamed wavefront scoring for queries longer than 128 bases: chains
-    K = q.shape[1]/128 tiles of the multi-row kernel, carrying the row-127
-    D/G/H strips between tiles (the reference's chaining-port intent,
-    ScoreBank/ScoringModule_v1.1.v:36-54; LEN_WIDTH=12 -> 4095-base
-    envelope, ScoreBank_v2.v:14-15).
-
-    Args:
-      q: [N, K*128] int8 per-stream query codes, sentinel-padded (pads in
-        the last tile cannot raise H — pad rows only pass the ripple down).
-      stream: [N, T] packed streams from pack_streams_long (T includes
-        (128//rows - 1)*(K-1) extra drain steps).
-      emit_stream/emit_step: emission coordinates (drain = 128//rows - 1,
-        identical to the single-tile multi-row contract).
-      score_width: W-bit biased wrap-parity — the chained form of the
-        RTL's SCORE_WIDTH arithmetic (the PE is W-bit at EVERY query
-        length: SW_ProcessingElement_v1.0.v:15-20 composed with the
-        chaining ports, ScoringModule_v1.1.v:36-54); the inter-tile
-        boundary strips carry biased values.
-
-    Returns [n_reads] int32 scores.
-    """
-    _validate_long(q, stream.shape[1], rows, state_dtype, interpret,
-                   penalties, n_streams=q.shape[0], score_width=score_width,
-                   chunk=chunk)
-    return _long_impl(
-        q, stream.T, emit_stream, emit_step, penalties, interpret,
-        state_dtype, rows, score_width=score_width,
-        emit_regular=emit_regular, chunk=chunk,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "state_dtype", "rows", "score_width",
-        "emit_regular",
-    ),
-)
-def sw_scores_stream_long_kernel_layout(
-    q: jnp.ndarray,
-    streamT: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    state_dtype: str = "int32",
-    rows: int = 16,
-    score_width=None,
-    emit_regular=None,
-) -> jnp.ndarray:
-    """sw_scores_stream_long on a PRE-TRANSPOSED [T, N] stream — the
-    resident layout of loaded databases, so long-query serving dispatches
-    carry no stream relayout at all (the query register is laid out
-    per-tile inside as usual)."""
-    _validate_long(q, streamT.shape[0], rows, state_dtype, interpret,
-                   penalties, n_streams=streamT.shape[1],
-                   score_width=score_width)
-    return _long_impl(
-        q, streamT, emit_stream, emit_step, penalties, interpret,
-        state_dtype, rows, score_width=score_width,
-        emit_regular=emit_regular,
-    )
-
-
-def _validate_long(q, T, rows, state_dtype, interpret, penalties, n_streams,
-                   score_width=None, chunk=None):
-    _validate_config(
-        1, interpret, rows, state_dtype, score_width, penalties
-    )
-    if chunk is not None and (chunk <= 0 or T % chunk):
-        # nc = T // chunk would silently truncate the grid and leave the
-        # emission tail of the strip unwritten
-        raise ValueError(
-            f"chunk={chunk} must be a positive divisor of the stream "
-            f"length {T}"
-        )
-    if q.shape[1] % LANES:
-        raise ValueError(f"q width {q.shape[1]} must be a multiple of {LANES}")
+def _validate(N, T, tile, block, score_width, penalties):
+    if tile < 1:
+        raise ValueError(f"tile={tile} must be >= 1")
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"block={block} must be a power of two")
+    if N % min(block, N):
+        raise ValueError(f"{N} streams do not divide into blocks of {block}")
     if T % STEP_CHUNK:
         raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
-    if n_streams % 128 and not interpret:
-        raise ValueError(
-            f"physical streams {n_streams} must be a multiple of 128 (lane dim)"
-        )
-
-
-def _long_impl(q, sk, emit_stream, emit_step, penalties, interpret,
-               state_dtype, rows, score_width=None, emit_regular=None,
-               chunk=None):
-    """Shared chained-tile body; sk is the kernel-layout [T, N] stream."""
-    ma, mi, go, ge = penalties.astuple()
-    N = q.shape[0]
-    K = q.shape[1] // LANES
-    SL = LANES // rows
-    T = sk.shape[0]
-    # per-tile kernel-layout queries, stacked for the scan
-    qks = jnp.stack(
-        [
-            _q_kernel_layout(q[:, p * LANES : (p + 1) * LANES], 1, rows)
-            for p in range(K)
-        ]
-    )  # [K, 128, N]
-    # boundary zero: the bias in wrap mode (the RTL ties chain inputs to
-    # ZERO = 2^(W-1), SW_ProcessingElement_v1.0.v:15-20)
-    bias = 0 if score_width is None else (1 << (score_width - 1))
-    zeros = jnp.full((T, N), bias, jnp.int32)
-
-    def tile(carry, qk):
-        bD, bG, bH, _ = carry
-        acc, oD, oG, oH = _strip_call_chained(
-            qk, sk, bD, bG, bH, ma, mi, go, ge, interpret,
-            state_dtype=state_dtype, rows=rows, score_width=score_width,
-            chunk=chunk,
-        )
-        # only the LAST tile's accumulator strip is the emission surface;
-        # carry it (overwritten each tile) instead of stacking K strips
-        nxt = (
-            _shift_steps(oD, SL - 2, fill=bias),
-            _shift_steps(oG, SL - 1, fill=bias),
-            _shift_steps(oH, SL - 1, fill=bias),
-            acc,
-        )
-        return nxt, None
-
-    (_, _, _, acc_last), _ = jax.lax.scan(
-        tile, (zeros, zeros, zeros, zeros), qks
-    )
-    # acc_last is already [T, N] — the shared gather needs no transpose.
-    # In wrap mode the strip is biased; unbias after the gather (the live
-    # mask keeps zero-length reads at score 0)
-    return _gather_emissions(acc_last, emit_stream, emit_step, bias=bias,
-                             regular=emit_regular)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "state_dtype", "rows", "score_width",
-        "emit_regular",
-    ),
-)
-def sw_scores_stream_long_packed(
-    q: jnp.ndarray,
-    codes: jnp.ndarray,
-    flags: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    state_dtype: str = "int32",
-    rows: int = 16,
-    score_width=None,
-    emit_regular=None,
-) -> jnp.ndarray:
-    """sw_scores_stream_long on the 2-bit wire format: the stream crosses
-    H2D at 2.5 bits/char (pack_stream_wire) and expands on device, so long
-    queries get the same 3.2x transfer cut as the short-query path."""
-    stream = unpack_stream_wire(codes, flags)
-    return sw_scores_stream_long(
-        q, stream, emit_stream, emit_step, penalties=penalties,
-        interpret=interpret, state_dtype=state_dtype, rows=rows,
-        score_width=score_width, emit_regular=emit_regular,
-    )
-
-
-def _strip_call(
-    qT, streamT, ma, mi, go, ge, interpret, seg=1, state_dtype="int32",
-    tail_acc=True, rows=1, chunk=None, score_width=None,
-):
-    """qT: [128, S_phys] int8, streamT: [T, seg*S_phys] int8
-    -> strip [T, seg*S_phys] int32.  rows = query rows folded per sublane
-    (the multi-row kernel; rows=1 is the classic one-row wavefront)."""
-    S = qT.shape[1]
-    T = streamT.shape[0]
-    # The unrolled body is chunk x per-step ops; per-step ops grow with
-    # `rows` (the sub-row loop), so shrink the chunk to keep the remote
-    # Mosaic compile bounded.  Interpret mode always uses the small chunk.
-    # T is rounded to STEP_CHUNK=32 by the packers, which 8 and 16 divide,
-    # so the grid math is unchanged.
-    if chunk is None:
-        if interpret:
-            chunk = 8
-        elif rows <= 1 or rows == 16:
-            # full STEP_CHUNK unroll: multi-row bodies ran chunk=8 through
-            # round 4 purely for compile budget; the round-5 toolchain
-            # compiles the long bodies in ~20-60 s and they measure faster
-            # at every depth (campaign_r5d/r5f/r5i): rows=16 at chunk
-            # 8/16/32 = 414 / 424-427 / 435 GCUPS (back-to-back A/B, B=262Ki),
-            # rows=8 seg=2 at 16 = 330.8 (was 276.7) — fewer grid
-            # iterations, better block pipelining
-            chunk = STEP_CHUNK
-        else:
-            chunk = 16
-    nc = T // chunk
-    dt = jnp.dtype(state_dtype).type if state_dtype != "int32" else jnp.int32
-    # the tail-accumulator scratch holds one live row per segment but must
-    # span full sublane tiles: 16-bit dtypes tile as (16, 128), so an
-    # 8-sublane scratch would be sub-tile (the round-1 int16 Mosaic crash)
-    acc_rows = 16 if jnp.dtype(dt).itemsize == 2 else 8
-    if rows == 1:
-        kernel = functools.partial(
-            _stream_kernel, ma=ma, mi=mi, go=go, ge=ge, seg=seg, dt=dt,
-            tail_acc=tail_acc, biased_width=score_width,
-        )
-        scratch = (
-            [pltpu.VMEM((LANES, S), dt) for _ in range(4)]
-            + [pltpu.VMEM((LANES, S), jnp.int32)]
-            + ([pltpu.VMEM((acc_rows, S), dt)] if tail_acc else [])
-        )
-    else:
-        SL = LANES // rows
-        kernel = functools.partial(
-            _stream_kernel_mr, ma=ma, mi=mi, go=go, ge=ge, seg=seg, R=rows,
-            dt=dt, biased_width=score_width,
-        )
-        scratch = [
-            pltpu.VMEM((LANES, S), dt),  # G sub-row planes (stacked)
-            pltpu.VMEM((LANES, S), dt),  # D sub-row planes (stacked)
-            pltpu.VMEM((SL, S), dt),  # D[R-1] two steps back
-            pltpu.VMEM((SL, S), dt),  # H[R-1] one step back
-            pltpu.VMEM((SL, S), jnp.int32),  # char pipe
-            pltpu.VMEM((acc_rows, S), dt),  # per-segment tail accumulators
-        ]
-    out = pl.pallas_call(
-        kernel,
-        grid=(nc,),
-        in_specs=[
-            pl.BlockSpec((LANES, S), lambda c: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (chunk, seg * S), lambda c: (c, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (chunk, seg * S), lambda c: (c, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((T, seg * S), jnp.int32),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=24 * S * LANES * T, bytes_accessed=(S * T) * 5, transcendentals=0
-        ),
-        # the wavefront state in scratch carries across grid steps: the grid
-        # MUST execute sequentially, never be parallelized
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)
-        ),
-        interpret=interpret,
-    )(qT.astype(jnp.int8), streamT.astype(jnp.int8))
-    return out
-
-
-def _q_kernel_layout(q, segments, rows=1):
-    """Logical [N, qcap] queries -> kernel register [128, S_phys]: logical
-    stream n = g*S_phys + s maps to segment g of physical column s; with
-    rows > 1 (multi-row kernel) query row i = k*rows + r of segment g maps
-    to kernel row r*(128//rows) + g*SLg + k."""
-    N, qcap = q.shape
-    S_phys = N // segments
-    if rows == 1:
-        return (
-            q.reshape(segments, S_phys, qcap).transpose(0, 2, 1)
-            .reshape(LANES, S_phys)
-        )
-    SLg = LANES // rows // segments
-    q4 = q.reshape(segments, S_phys, SLg, rows)  # [g, s, k, r]
-    return q4.transpose(3, 0, 2, 1).reshape(LANES, S_phys)
-
-
-def _to_kernel_layout(q, stream, segments, rows=1):
-    """(q, stream) -> ([128, S_phys], [T, N]); see _q_kernel_layout."""
-    return _q_kernel_layout(q, segments, rows), stream.T
-
-
-def _validate_config(
-    segments, interpret, rows=1, state_dtype="int32",
-    score_width=None, penalties=DEFAULT_PENALTIES,
-):
-    """Shape-independent contract checks shared by every kernel entry."""
     if score_width is not None:
-        if state_dtype != "int32":
-            # & and sign-bit tests are integer ops; f32 lanes can't wrap
-            raise ValueError(
-                "score_width (wrap-parity) requires state_dtype='int32', "
-                f"got {state_dtype!r}"
-            )
         if not 2 <= score_width <= 30:
             raise ValueError(
                 f"score_width={score_width} out of range (need 2..30)"
@@ -819,133 +179,131 @@ def _validate_config(
                 f"score_width={score_width} too narrow for penalties "
                 f"(need 2^(W-1) >= |open+extend| + |extend|)"
             )
-    if LANES % segments or segments > 8:
-        # the (8, S) tail-accumulator scratch holds one row per segment
-        raise ValueError(f"segments {segments} must divide {LANES} and be <= 8")
-    if rows not in (1, 2, 4, 8, 16):
-        raise ValueError(f"rows {rows} must be one of 1/2/4/8/16")
-    if rows == 16 and state_dtype in ("int16", "uint16", "bfloat16"):
-        # (128//16, S) = 8-sublane state planes sub-tile the (16, 128)
-        # 16-bit layout
-        raise ValueError("rows=16 requires a 32-bit state dtype")
-    if rows == 16 and segments > 1 and not interpret:
-        # measured Mosaic limitation: the per-segment tail concat at
-        # SLg = 8//segments trips "offset mismatch on non-concat dimension"
-        # (experiments/campaign_sweep, parity_r16_seg4); rows<=8 covers every
-        # segmented config
-        raise ValueError("rows=16 supports segments=1 only on TPU")
-    if (LANES // rows) % segments:
-        raise ValueError(
-            f"sublane rows {LANES//rows} must divide by segments {segments}"
-        )
 
 
-def _validate_kernel_layout(
-    qk, streamT, segments, interpret, rows=1, state_dtype="int32",
-    score_width=None, penalties=DEFAULT_PENALTIES,
-):
-    """Contract checks for pre-laid-out inputs (qk [128, S_phys],
-    streamT [T, seg*S_phys])."""
-    _validate_config(
-        segments, interpret, rows, state_dtype, score_width, penalties
-    )
-    if qk.shape[0] != LANES:
-        raise ValueError(f"kernel q must have {LANES} rows, got {qk.shape}")
-    S_phys = qk.shape[1]
-    if streamT.shape[1] != segments * S_phys:
-        raise ValueError(
-            f"streamT width {streamT.shape[1]} != segments*S_phys "
-            f"({segments}*{S_phys})"
-        )
-    if streamT.shape[0] % STEP_CHUNK:
-        raise ValueError(
-            f"stream length {streamT.shape[0]} not a multiple of {STEP_CHUNK}"
-        )
-    if S_phys % 128 and not interpret:
-        raise ValueError(
-            f"physical streams {S_phys} must be a multiple of 128 (lane dim)"
-        )
+def _scores(qT, sk, emit_stream, emit_step, penalties, tile, block,
+            interpret, score_width, emit_regular):
+    """Shared body: qT [L, N] per-stream query rows (or [L], one query for
+    every stream), sk [T, N] stream -> per-read scores."""
+    T, N = sk.shape
+    _validate(N, T, tile, block, score_width, penalties)
+    if qT.ndim == 1:
+        qT = jnp.broadcast_to(qT[:, None], (qT.shape[0], N))
+    # pad rows (Q_PAD never matches) cannot raise the best score
+    K, th = tile_rows(qT.shape[0], tile)
+    qT = jnp.pad(qT.astype(jnp.int8), ((0, K * th - qT.shape[0]), (0, 0)),
+                 constant_values=Q_PAD)
+    qtiles = qT.reshape(K, th, N)
+    bias = 0 if score_width is None else 1 << (score_width - 1)
+    kw = dict(penalties=penalties, block=min(block, N), interpret=interpret,
+              width=score_width)
+    gather = lambda acc: _gather_emissions(acc, emit_stream, emit_step,
+                                           bias=bias, regular=emit_regular)
+    acc, bd, bg = _tile_call(qtiles[0], sk, None, None, chain_out=K > 1, **kw)
+    best = gather(acc)
+    if K > 2:
+        def middle(carry, qt):
+            bd, bg, best = carry
+            acc, bd, bg = _tile_call(qt, sk, bd, bg, chain_out=True, **kw)
+            return (bd, bg, jnp.maximum(best, gather(acc))), None
+
+        (bd, bg, best), _ = jax.lax.scan(middle, (bd, bg, best),
+                                         qtiles[1:-1])
+    if K > 1:
+        acc, _, _ = _tile_call(qtiles[-1], sk, bd, bg, chain_out=False, **kw)
+        best = jnp.maximum(best, gather(acc))
+    return best
 
 
-def _validate(
-    q, stream, segments, interpret, rows=1, state_dtype="int32",
-    score_width=None, penalties=DEFAULT_PENALTIES,
-):
-    _validate_config(
-        segments, interpret, rows, state_dtype, score_width, penalties
-    )
-    N, qcap = q.shape
-    T = stream.shape[1]
-    if qcap != LANES // segments:
-        raise ValueError(
-            f"q width {qcap} != {LANES}//segments ({LANES // segments})"
-        )
-    if N % segments:
-        raise ValueError(f"n_streams {N} must divide by segments {segments}")
-    if T % STEP_CHUNK:
-        raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
-    if (N // segments) % 128 and not interpret:
-        raise ValueError(
-            f"physical streams {N//segments} must be a multiple of 128 (lane dim)"
-        )
+_STATIC = ("penalties", "tile", "block", "interpret", "score_width",
+           "emit_regular")
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "segments", "state_dtype", "tail_acc",
-        "rows", "score_width",
-    ),
-)
-def sw_scores_stream_strip(
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def sw_scores_stream_kernel_layout(
+    qT: jnp.ndarray,
+    streamT: jnp.ndarray,
+    emit_stream: jnp.ndarray,
+    emit_step: jnp.ndarray,
+    penalties: Penalties = DEFAULT_PENALTIES,
+    tile: int = 32,
+    block: int = 128,
+    interpret: bool = False,
+    score_width=None,
+    emit_regular=None,
+) -> jnp.ndarray:
+    """Score a device-resident [T, N] stream (the kernel's layout, so a
+    loaded database is never relaid out per query).
+
+    qT: [L] int8, one query for every stream, or [L, N] per-stream query
+    rows (pairs), sentinel-padded with Q_PAD."""
+    return _scores(qT, streamT, emit_stream, emit_step, penalties, tile,
+                   block, interpret, score_width, emit_regular)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def sw_scores_stream(
     q: jnp.ndarray,
     stream: jnp.ndarray,
+    emit_stream: jnp.ndarray,
+    emit_step: jnp.ndarray,
     penalties: Penalties = DEFAULT_PENALTIES,
+    tile: int = 32,
+    block: int = 128,
     interpret: bool = False,
-    segments: int = 1,
-    state_dtype: str = "int32",
-    tail_acc: bool = True,
-    rows: int = 1,
     score_width=None,
+    emit_regular=None,
 ) -> jnp.ndarray:
-    """Run the wavefront over packed streams; returns the raw H strip.
+    """Wavefront scoring of packed streams with the on-device emission
+    gather: only per-read scores leave the device — the analog of the
+    result-mux tap at `output_select` (ScoreBank/ScoringModule_v1.1.v:
+    102-107).
 
     Args:
-      q: [N, 128//segments] int8 per-stream query codes (sentinel-padded).
-      stream: [N, T] int8 concatenated target chars (codes 0..3, +8 flag on
-        each target's first char, 4 = drain/pad), T % STEP_CHUNK == 0.
-      penalties: static scoring penalties.
-      segments: queries packed per lane column (1, 2, or 4); raises
-        utilization to 100% for queries of <=128/segments bases.
-      rows: query rows folded per sublane (multi-row kernel; amortizes
-        sublane rolls by `rows`).  Query capacity is unchanged; the
-        emission drain shrinks to 128//(rows*segments) - 1.
+      q: [N, L] int8 per-stream query codes, sentinel-padded (Q_PAD).
+      stream: [N, T] int8 concatenated target chars (codes 0..3, +FLAG_BIT
+        on each target's first char, 4 = pad), T % STEP_CHUNK == 0.
+      emit_stream / emit_step: each read's (stream, last-char step);
+        emit_step < 0 marks a zero-length read (score 0).
+      tile: query rows one thread holds; longer queries chain tiles.
+      block: streams per kernel program (a power of two).
+      score_width: emulate the RTL's W-bit biased-register arithmetic
+        including overflow wrap; scores match oracle.sw_score_single_biased.
+      emit_regular: static (first, stride, count) strided-extract pattern
+        from swtpu.bank.streams.detect_regular_emissions, or None.
 
-    Returns: [N, T] int32 — each logical stream's segment-tail H after each
-    step; index [n, off+len-1+(128//(rows*segments)-1)] holds the score of
-    the target at offset `off`.  Use swtpu.bank.streams to build inputs and
-    gather scores.
+    Returns [n_reads] int32 scores.
     """
-    ma, mi, go, ge = penalties.astuple()
-    _validate(
-        q, stream, segments, interpret, rows, state_dtype,
-        score_width, penalties,
-    )
-    qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    out = _strip_call(
-        qk, sk, ma, mi, go, ge, interpret, seg=segments,
-        state_dtype=state_dtype, tail_acc=tail_acc, rows=rows,
-        score_width=score_width,
-    )
-    return out.T
+    return _scores(q.T, stream.T, emit_stream, emit_step, penalties, tile,
+                   block, interpret, score_width, emit_regular)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def sw_scores_stream_packed(
+    q: jnp.ndarray,
+    codes: jnp.ndarray,
+    flags: jnp.ndarray,
+    emit_stream: jnp.ndarray,
+    emit_step: jnp.ndarray,
+    penalties: Penalties = DEFAULT_PENALTIES,
+    tile: int = 32,
+    block: int = 128,
+    interpret: bool = False,
+    score_width=None,
+    emit_regular=None,
+) -> jnp.ndarray:
+    """sw_scores_stream on the 2-bit wire format: the stream crosses H2D at
+    2.5 bits/char (pack_stream_wire) and expands on device."""
+    return _scores(q.T, unpack_stream_wire(codes, flags).T, emit_stream,
+                   emit_step, penalties, tile, block, interpret, score_width,
+                   emit_regular)
 
 
 def unpack_stream_wire(codes: jnp.ndarray, flags: jnp.ndarray) -> jnp.ndarray:
     """Device-side inverse of swtpu.bank.streams.pack_stream_wire: expand
     4-bases/byte codes + 8-flags/byte bitmap back to the [N, T] int8 flagged
-    char stream.  Runs as a cheap one-shot VPU pass before the kernel (the
-    analog of the AFU's on-chip 2-bit unpack as it shifts bases into the
-    array, capi_sample_aligner/hdl-verliog/afu.v:408)."""
+    char stream (the analog of the AFU's on-chip 2-bit unpack as it shifts
+    bases into the array, capi_sample_aligner/hdl-verliog/afu.v:408)."""
     N, nb = codes.shape
     c = codes[:, :, None]
     shifts2 = (jnp.arange(4, dtype=jnp.uint8) * 2)[None, None, :]
@@ -956,151 +314,24 @@ def unpack_stream_wire(codes: jnp.ndarray, flags: jnp.ndarray) -> jnp.ndarray:
     return (chars | (fbits << 3)).astype(jnp.int8)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "segments", "state_dtype", "tail_acc",
-        "rows", "score_width", "emit_regular",
-    ),
-)
-def sw_scores_stream_packed(
-    q: jnp.ndarray,
-    codes: jnp.ndarray,
-    flags: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    segments: int = 1,
-    state_dtype: str = "int32",
-    tail_acc: bool = True,
-    rows: int = 1,
-    score_width=None,
-    emit_regular=None,
-) -> jnp.ndarray:
-    """sw_scores_stream on the 2-bit wire format: the stream crosses H2D at
-    2.5 bits/char (pack_stream_wire) and expands on device."""
-    stream = unpack_stream_wire(codes, flags)
-    return sw_scores_stream(
-        q, stream, emit_stream, emit_step, penalties=penalties,
-        interpret=interpret, segments=segments, state_dtype=state_dtype,
-        tail_acc=tail_acc, rows=rows, score_width=score_width,
-        emit_regular=emit_regular,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "segments", "state_dtype", "tail_acc",
-        "rows", "score_width", "emit_regular",
-    ),
-)
-def sw_scores_stream_kernel_layout(
-    qk: jnp.ndarray,
-    streamT: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    segments: int = 1,
-    state_dtype: str = "int32",
-    tail_acc: bool = True,
-    rows: int = 1,
-    score_width=None,
-    emit_regular=None,
-) -> jnp.ndarray:
-    """sw_scores_stream on PRE-LAID-OUT inputs: qk [128, S_phys]
-    (``_q_kernel_layout``) and streamT [T, N] (the stream transposed).
-    For device-resident databases the [T, N] stream lives in HBM across
-    queries, so per-query calls skip the full-stream relayout entirely —
-    only the ~64 KB query register moves per job."""
-    ma, mi, go, ge = penalties.astuple()
-    _validate_kernel_layout(
-        qk, streamT, segments, interpret, rows, state_dtype,
-        score_width, penalties,
-    )
-    strip = _strip_call(
-        qk, streamT, ma, mi, go, ge, interpret, seg=segments,
-        state_dtype=state_dtype, tail_acc=tail_acc, rows=rows,
-        score_width=score_width,
-    )  # [T, N]
-    return _gather_emissions(strip, emit_stream, emit_step,
-                             regular=emit_regular)
-
-
 def _gather_emissions(strip, emit_stream, emit_step, bias=0, regular=None):
     """[T, N] strip -> per-read scores (emit_step < 0 = zero-length read).
-    The ONE emission-gather implementation every scoring entry shares
-    (traced inline — no nested jit, so compiled-executable cache keys are
-    unchanged).  `bias` unbiases wrap-mode strips; zero-length reads stay
-    at score 0 either way.
+    The one emission-gather every scoring entry shares.  `bias` unbiases
+    wrap-mode strips; zero-length reads stay at score 0 either way.
 
     regular: static (first, stride, count) from
     swtpu.bank.streams.detect_regular_emissions — read r emits at
     (r % N, first + (r // N) * stride), so read-order scores are a strided
     row slice reshaped row-major: [count, N].reshape(-1)[r] is exactly
-    element (r // N, r % N).  This replaces the R-element scattered gather
-    (measured ~5.5 ms/call at R=262Ki, the round-4 product extraction tax)
-    with a strided DMA touching only count*N*4 bytes."""
+    element (r // N, r % N).  This replaces the scattered gather with a
+    strided slice touching only count*N*4 bytes."""
     if regular is not None:
         first, stride, count = regular
         ex = jax.lax.slice_in_dim(
             strip, first, first + (count - 1) * stride + 1, stride, axis=0
         )  # [count, N]
-        scores = ex.reshape(-1)
-        if bias:
-            scores = scores - bias
-        return scores.astype(jnp.int32)
+        return (ex.reshape(-1) - bias).astype(jnp.int32)
     live = emit_step >= 0
     safe_step = jnp.where(live, emit_step, 0)
-    scores = strip[safe_step, emit_stream]
-    if bias:
-        scores = scores - bias
+    scores = strip[safe_step, emit_stream] - bias
     return jnp.where(live, scores, 0).astype(jnp.int32)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "penalties", "interpret", "segments", "state_dtype", "tail_acc",
-        "rows", "score_width", "emit_regular",
-    ),
-)
-def sw_scores_stream(
-    q: jnp.ndarray,
-    stream: jnp.ndarray,
-    emit_stream: jnp.ndarray,
-    emit_step: jnp.ndarray,
-    penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
-    segments: int = 1,
-    state_dtype: str = "int32",
-    tail_acc: bool = True,
-    rows: int = 1,
-    score_width=None,
-    emit_regular=None,
-) -> jnp.ndarray:
-    """Wavefront scoring with on-device emission gather: only the per-read
-    scores leave the chip (the strip stays in HBM) — the analog of the
-    result-mux tap at `output_select` (ScoreBank/ScoringModule_v1.1.v:102-107).
-
-    emit_step < 0 marks a zero-length read (score 0).  emit_step must have
-    been computed for the same `rows`/`segments` (drain differs).
-
-    score_width: emulate the RTL's W-bit biased-register arithmetic
-    including overflow wrap (requires state_dtype='int32'); scores match
-    oracle.sw_score_single_biased."""
-    ma, mi, go, ge = penalties.astuple()
-    _validate(
-        q, stream, segments, interpret, rows, state_dtype,
-        score_width, penalties,
-    )
-    qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    strip = _strip_call(
-        qk, sk, ma, mi, go, ge, interpret, seg=segments,
-        state_dtype=state_dtype, tail_acc=tail_acc, rows=rows,
-        score_width=score_width,
-    )  # [T, N]
-    return _gather_emissions(strip, emit_stream, emit_step,
-                             regular=emit_regular)

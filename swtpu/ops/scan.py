@@ -1,8 +1,9 @@
 """Batched Smith-Waterman scoring as a `lax.scan` over target columns.
 
 This is the portable JAX formulation of the recurrence (SURVEY.md §7 step 2)
-— the semantic twin of the Pallas kernel that runs anywhere XLA does.  It is
-the "ScoringModule" of swtpu in functional form: where the FPGA assigns one
+— the plain reference the wavefront kernel is measured against, and the
+backend wherever no kernel runs.  It is the "ScoringModule" of swtpu in
+functional form: where the FPGA assigns one
 query base per processing element and streams target bases one per cycle
 (ScoreBank/ScoringModule_v1.1.v:155-235), here the *batch of pairs* is the
 vector dimension and one `scan` step computes an entire DP column (all query
@@ -52,11 +53,12 @@ def _maxplus_prefix(base: jnp.ndarray, ge: int) -> jnp.ndarray:
     return x
 
 
-@functools.partial(jax.jit, static_argnames=("penalties",))
+@functools.partial(jax.jit, static_argnames=("penalties", "score_width"))
 def sw_scores_scan(
     q: jnp.ndarray,
     t: jnp.ndarray,
     penalties: Penalties = DEFAULT_PENALTIES,
+    score_width=None,
 ) -> jnp.ndarray:
     """Score a batch of (query, target) pairs.
 
@@ -64,6 +66,10 @@ def sw_scores_scan(
       q: [B, m] int base codes, sentinel-padded (Q_PAD).
       t: [B, n] int base codes, sentinel-padded (T_PAD).
       penalties: static scoring penalties.
+      score_width: emulate the RTL's W-bit biased-register arithmetic
+        including overflow wrap + sign-bit clamp (oracle:
+        `sw_score_single_biased`; SW_ProcessingElement_v1.0.v:15-20).
+        None = exact int32 scoring.
 
     Returns: [B] int32 local-alignment scores.
     """
@@ -73,21 +79,50 @@ def sw_scores_scan(
     t = t.astype(dt)
     B, m = q.shape
     neg = jnp.array(jnp.iinfo(dt).min // 4, dtype=dt)
+    zero = jnp.array(0, dt)
+    if score_width is not None:
+        # SCORE_WIDTH wrap-parity mode: state holds W-bit *biased unsigned*
+        # values (score + 2^(W-1)) in 32-bit lanes — the RTL's register
+        # width is emulated, not stored.  Only the M update needs the wrap
+        # (`& mask`) + sign-bit clamp (the M_bus select): the I chain
+        # provably never wraps step-wise, because every cell refreshes it
+        # with M_open >= ZERO + open + extend > 0 (requires
+        # 2^(W-1) >= |open+extend| + |extend|, checked below), so its
+        # max-plus prefix scan runs in plain arithmetic — masking inside the
+        # scan would be WRONG: a k-jump (x + k*ge) can dip below zero and
+        # wrap even though no sequential step would.
+        if not 2 <= score_width <= 30:
+            raise ValueError(
+                f"score_width={score_width} out of range (need 2..30)"
+            )
+        if (1 << (score_width - 1)) + (go + ge) + ge < 0:
+            raise ValueError(
+                f"score_width={score_width} too narrow for penalties "
+                f"(need 2^(W-1) >= {-(go + 2 * ge)})"
+            )
+        mask = jnp.array((1 << score_width) - 1, dt)
+        zero = jnp.array(1 << (score_width - 1), dt)
+
+    def m_update(x):
+        if score_width is None:
+            return jnp.maximum(x, 0)
+        ms = x & mask
+        return jnp.where((ms & zero) != 0, ms, zero)
 
     # Boundary I[-1][j] = 0 (the RTL ties every chain input to ZERO,
     # SW_ProcessingElement_v1.0.v:156-164): contributes candidate 0+ge to
     # row 0 of every column's prefix scan.
     i0_bias = jnp.where(
-        jnp.arange(m)[None, :] == 0, jnp.array(ge, dt), neg
+        jnp.arange(m)[None, :] == 0, zero + jnp.array(ge, dt), neg
     )
 
     def step(carry, t_col):
         M, I, H = carry
         s = jnp.where(q == t_col[:, None], ma, mi).astype(dt)
         diag = jnp.maximum(M, I)
-        diag_s = _shift_down(diag, 0)
-        M_new = jnp.maximum(diag_s + s, 0)
-        M_up = _shift_down(M_new, 0)
+        diag_s = _shift_down(diag, zero)
+        M_new = m_update(diag_s + s)
+        M_up = _shift_down(M_new, zero)
         base = jnp.maximum(
             jnp.maximum(M_up, M) + jnp.array(go + ge, dt),
             jnp.maximum(I + jnp.array(ge, dt), i0_bias),
@@ -96,10 +131,7 @@ def sw_scores_scan(
         H = jnp.maximum(H, M_new)
         return (M_new, I_new, H), None
 
-    init = (
-        jnp.zeros((B, m), dt),  # boundary column j=-1: M=0
-        jnp.zeros((B, m), dt),  # boundary column j=-1: I=0 (RTL ZERO tie)
-        jnp.zeros((B, m), dt),
-    )
+    # boundary column j=-1: M = I = 0 (the RTL ZERO tie)
+    init = (jnp.full((B, m), zero, dt),) * 3
     (_, _, H), _ = jax.lax.scan(step, init, t.T)
-    return jnp.max(H, axis=1)
+    return jnp.max(H, axis=1) - zero

@@ -1,7 +1,7 @@
 """Exact software oracle for affine-gap (Gotoh) Smith-Waterman scoring.
 
 This is the executable semantic contract of the whole framework — the
-TPU-native analog of the reference's oracle chain (data/sw-testing.py's
+analog of the reference's oracle chain (data/sw-testing.py's
 `swalign` pass and the ssearch36 golden files; SURVEY.md §0).  Every kernel
 in swtpu must match it bit-exactly, and it in turn is validated against the
 reference repo's bundled goldens (RTL `data/*_out.txt`, swalign

@@ -2,7 +2,7 @@
 
 Production-facing wrapper over `jax.distributed` for running the ScoreBank
 across hosts: each process owns a database shard; queries are replicated;
-scores and top-K merge over DCN/ICI collectives.  The hardware-free
+scores and top-K merge over collectives.  The hardware-free
 equivalent (N OS processes on localhost, CPU backend) lives in
 swtpu.testing.{worker,regress} — same code path, per the reference's PSLSE
 strategy of exercising the full stack without hardware (SURVEY.md §4).
@@ -21,7 +21,7 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """jax.distributed.initialize, with args optional when the environment
-    provides them (GKE/TPU pods auto-discover)."""
+    provides them (cluster launchers that JAX auto-discovers)."""
     import jax
 
     kwargs = {}
@@ -63,10 +63,10 @@ def score_database_multihost(
     globally merged and replicated on every host (the bank-wide best-hit
     capability, ScoreBank/ScoreBank_v2.v:42-43).
 
-    backend 'auto' resolves to the flagship streamed-wavefront kernel —
-    the bank instantiates its fastest array as THE path
-    (ScoreBank/ScoreBank_v2.v:117) — compiled Mosaic on TPU, interpret mode
-    elsewhere; 'scan'/'pallas' select the dense bucketed fallbacks.
+    backend 'auto' resolves through the platform table (swtpu.device): the
+    streamed-wavefront kernel on the GPU, the plain scan on the CPU;
+    'stream'/'scan' pick one explicitly ('stream' on the CPU runs the
+    kernel in the Pallas interpreter).
 
     local_targets: a sequence of 1-D code arrays, or the dense
     EncodedDB / (mat, lens) form — the fast path (native per-shard packing,
@@ -91,7 +91,9 @@ def score_database_multihost(
     if mesh is None:
         mesh = make_mesh()
     if backend == "auto":
-        backend = "stream"
+        from swtpu.device import kernel_plan
+
+        backend = kernel_plan().backend
     if backend == "stream":
         return _score_database_multihost_stream(
             query, local_targets, local_ids, mesh, k, pen,
@@ -125,7 +127,9 @@ def score_database_multihost(
     qg = shard_rows(q, mesh)
     tg = shard_rows(t, mesh)
     idsg = shard_rows(np.asarray(local_ids, np.int32), mesh)
-    topk = make_sharded_topk(mesh, k=k, backend=backend, penalties=pen)
+    if backend != "scan":
+        raise ValueError(f"unknown backend {backend!r}")
+    topk = make_sharded_topk(mesh, k=k, penalties=pen)
     top_s, top_ids, scores = topk(qg, tg, idsg)
     local_scores = np.concatenate(
         [np.asarray(s.data) for s in scores.addressable_shards]
@@ -155,33 +159,39 @@ def _score_database_multihost_stream(
     self-regulation (ScoreBank_v2.v:163-165).  Ragged per-host length
     mixes therefore need no manual pinning; `stream_steps` remains as an
     optional override (e.g. to freeze one compiled executable across
-    successive jobs) and must cover every host's packed length.
-
-    Proven as real Mosaic under shard_map on hardware (BENCH_NOTES.md
-    round-4: mesh(1) over the real chip, parity + GCUPS recorded)."""
+    successive jobs) and must cover every host's packed length."""
     import jax
 
+    from swtpu.bank.scorebank import _dense_form
     from swtpu.bank.streams import (
         STREAM_PAD, pack_streams_sharded, scatter_sharded_scores,
     )
+    from swtpu.device import kernel_plan, stream_count
     from swtpu.ops.pallas_stream import STEP_CHUNK
     from swtpu.parallel.sharded import make_sharded_stream_scorer
 
-    on_tpu = jax.default_backend() == "tpu"
-    interpret = not on_tpu
-    rows = 16 if on_tpu else 1
-    if n_streams is None:
-        n_streams = 512 if on_tpu else 8
+    plan = kernel_plan()
     if stream_steps is not None and stream_steps % STEP_CHUNK:
         # fail here with the contract named, not at kernel trace time
         raise ValueError(
             f"stream_steps={stream_steps} must be a multiple of "
-            f"{STEP_CHUNK} (the kernel's step-chunk grid)"
+            f"{STEP_CHUNK} (the packers' step rounding)"
         )
     pidx = jax.process_index()
     L = sum(1 for d in mesh.devices.flat if d.process_index == pidx)
+    if n_streams is None:
+        # every process must pick the same count: size it from the largest
+        # per-host shard
+        _, tl = _dense_form(local_targets)
+        n_local = len(tl) if tl is not None else len(local_targets)
+        if jax.process_count() > 1:
+            from jax.experimental import multihost_utils
+
+            n_local = int(np.max(multihost_utils.process_allgather(
+                np.array([n_local], np.int64))))
+        n_streams = stream_count(-(-n_local // L), plan)
     batch = pack_streams_sharded(
-        query, local_targets, n_shards=L, n_streams=n_streams, rows=rows
+        query, local_targets, n_shards=L, n_streams=n_streams
     )
     stream = batch.stream
     T_local = stream.shape[2]
@@ -245,9 +255,8 @@ def _score_database_multihost_stream(
     epg = shard_rows(emit_step.astype(np.int32), mesh)
     idsg = shard_rows(gids, mesh)
     scorer = make_sharded_stream_scorer(
-        mesh, penalties=pen, interpret=interpret, k=k, rows=rows,
-        state_dtype="float32" if on_tpu else "int32",
-        emit_regular=emit_regular,
+        mesh, penalties=pen, interpret=plan.interpret, k=k, tile=plan.tile,
+        block=plan.block, emit_regular=emit_regular,
     )
     s, top_s, top_ids = scorer(qg, sg, esg, epg, idsg)
     shards = sorted(s.addressable_shards, key=lambda x: x.index[0].start or 0)

@@ -1,15 +1,15 @@
 """Data-parallel scoring and collective top-K merge over a device mesh.
 
-TPU-native equivalent of scaling the reference beyond one ScoreBank: the
-database batch is sharded across the mesh's `data` axis (each device = one
-"scoring module" bank, ScoreBank/ScoreBank_v2.v:77-139), the query is
-replicated (the bank broadcasts `ld_q` to every module,
-ScoreBank_v2.v:99-102), and per-shard results are merged with XLA
-collectives — implementing, at pod scale, the best-hit/top-K capability the
-reference declared but never drove (the dangling `max`/`vld_max` ports,
+Scaling the reference beyond one ScoreBank: the database batch is sharded
+across the mesh's `data` axis (each device = one "scoring module" bank,
+ScoreBank/ScoreBank_v2.v:77-139), the query is replicated (the bank
+broadcasts `ld_q` to every module, ScoreBank_v2.v:99-102), and per-shard
+results are merged with XLA collectives — implementing, across devices and
+hosts, the best-hit/top-K capability the reference declared but never
+drove (the dangling `max`/`vld_max` ports,
 ScoreBank_v2.v:42-43, and the ResBuffer stub, CAPI_template/ResBuffer.v).
 
-Collectives ride ICI within a slice / DCN across hosts; the same code runs
+Collectives go to NCCL between the GPUs of a host; the same code runs
 multi-process under `jax.distributed.initialize` (swtpu.testing provides the
 hardware-free localhost harness, the PSLSE analog).
 """
@@ -27,26 +27,16 @@ from jax import shard_map
 from swtpu.config import DEFAULT_PENALTIES, Penalties
 
 
-def _kernel_fn(backend: str, penalties: Penalties, interpret: bool) -> Callable:
-    if backend == "pallas":
-        from swtpu.ops.pallas_kernel import sw_scores_pallas
-
-        return lambda q, t: sw_scores_pallas(q, t, penalties, interpret=interpret)
-    from swtpu.ops.scan import sw_scores_scan
-
-    return lambda q, t: sw_scores_scan(q, t, penalties)
-
-
 def make_sharded_scorer(
     mesh: Mesh,
     axis: str = "data",
-    backend: str = "scan",
     penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
+    score_width=None,
 ) -> Callable:
     """Returns jitted scores = f(q [B,m], t [B,n]) with B sharded over
-    `axis`.  B must divide by the axis size (the packer's batch_align)."""
-    kernel = _kernel_fn(backend, penalties, interpret)
+    `axis` (the plain scan per shard).  B must divide by the axis size (the
+    packer's batch_align)."""
+    from swtpu.ops.scan import sw_scores_scan
 
     @functools.partial(
         shard_map,
@@ -56,7 +46,7 @@ def make_sharded_scorer(
         check_vma=False,
     )
     def score(q, t):
-        return kernel(q, t)
+        return sw_scores_scan(q, t, penalties, score_width=score_width)
 
     return jax.jit(score)
 
@@ -66,10 +56,10 @@ def make_sharded_stream_scorer(
     axis: str = "data",
     penalties: Penalties = DEFAULT_PENALTIES,
     interpret: bool = False,
-    segments: int = 1,
     k: int = 0,
-    rows: int = 1,
-    state_dtype: str = "int32",
+    tile: int = 32,
+    block: int = 128,
+    score_width=None,
     emit_regular=None,
 ) -> Callable:
     """Shard the streamed-wavefront backend (the headline kernel) over the
@@ -78,33 +68,18 @@ def make_sharded_stream_scorer(
     best hits (the `max`/`vld_max` intent, ScoreBank/ScoreBank_v2.v:42-43).
 
     Inputs are a ShardedStreamBatch's arrays (leading axis = shard):
-      scores[D, R] = f(q[D, N, qcap], stream[D, N, T],
+      scores[D, R] = f(q[D, N, L], stream[D, N, T],
                        emit_stream[D, R], emit_step[D, R], ids[D, R])
     With k > 0 returns (scores[D, R], top_scores[k], top_ids[k]).
-
-    rows / state_dtype select the kernel variant (multi-row folding, score
-    state width); the batch must be packed with the same `rows`.
     """
-    from swtpu.ops.pallas_stream import (
-        LANES, sw_scores_stream, sw_scores_stream_long,
-    )
+    from swtpu.ops.pallas_stream import sw_scores_stream
 
     def shard_fn(q, stream, es, ep, ids):
-        if q.shape[-1] > LANES:
-            # chained-tile path for >128-base queries (the sharded form of
-            # the reference's reserved chaining ports)
-            s = sw_scores_stream_long(
-                q[0], stream[0], es[0], ep[0],
-                penalties=penalties, interpret=interpret, rows=rows,
-                state_dtype=state_dtype, emit_regular=emit_regular,
-            )
-        else:
-            s = sw_scores_stream(
-                q[0], stream[0], es[0], ep[0],
-                penalties=penalties, interpret=interpret, segments=segments,
-                rows=rows, state_dtype=state_dtype,
-                emit_regular=emit_regular,
-            )
+        s = sw_scores_stream(
+            q[0], stream[0], es[0], ep[0], penalties=penalties, tile=tile,
+            block=block, interpret=interpret, score_width=score_width,
+            emit_regular=emit_regular,
+        )
         if not k:
             return s[None, :]
         fin_s, fin_ids = _merge_topk(s, ids[0], k, axis)
@@ -129,9 +104,8 @@ def make_sharded_topk(
     mesh: Mesh,
     k: int,
     axis: str = "data",
-    backend: str = "scan",
     penalties: Penalties = DEFAULT_PENALTIES,
-    interpret: bool = False,
+    score_width=None,
 ) -> Callable:
     """Returns jitted (top_scores [k], top_ids [k], scores [B]) =
     f(q [B,m], t [B,n], ids [B]).
@@ -141,7 +115,7 @@ def make_sharded_topk(
     pairs across shards (SURVEY.md §7 'hard parts').  Sentinel rows carry
     id -1 and score 0; callers filter them if k exceeds live rows.
     """
-    kernel = _kernel_fn(backend, penalties, interpret)
+    from swtpu.ops.scan import sw_scores_scan
 
     @functools.partial(
         shard_map,
@@ -151,7 +125,7 @@ def make_sharded_topk(
         check_vma=False,
     )
     def score_topk(q, t, ids):
-        s = kernel(q, t)
+        s = sw_scores_scan(q, t, penalties, score_width=score_width)
         fin_s, fin_ids = _merge_topk(s, ids, k, axis)
         return fin_s, fin_ids, s
 
@@ -179,8 +153,8 @@ def _merge_topk(s, ids, k: int, axis: str):
 def _local_topk(masked, ids, kk: int):
     """Per-shard top-kk, lowest ids first among equal scores.
 
-    For large shards a flat `lax.top_k` lowers to an O(R log R)-ish sort —
-    measured ~5 ms/call at R=262Ki (BENCH_NOTES round-4).  Two-level form:
+    For large shards a flat `lax.top_k` lowers to an O(R log R)-ish sort.
+    Two-level form:
     row-wise top-kk on a [R/128, 128] view (one O(R) pass), then top-kk of
     the R/128*kk candidates.  Exact, incl. tie order: an element dropped by
     its row's cut has >= kk elements in that row scoring >= it with lower

@@ -1,6 +1,6 @@
 // swtpu native host runtime: FASTA parsing, 2-bit encoding, dense packing.
 //
-// TPU-native counterpart of the reference's native host layer
+// Counterpart of the reference's native host layer
 // (capi_sample_aligner/software-C,C++/src/main_test.c and
 // include/aligner_Header.c): the hot host-side path that turns raw FASTA
 // bytes into dense, sentinel-padded int8 tensors ready for device transfer.

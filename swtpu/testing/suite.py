@@ -141,8 +141,7 @@ def run_suite(
             from swtpu.utils.guards import IntegrityError
 
             sbank = _SB(
-                bank.config, backend="stream", interpret=True,
-                verify_integrity=True,
+                bank.config, backend="stream", verify_integrity=True,
             )
             ok = True
             detail = []

@@ -3,7 +3,7 @@
 The reference carries odd-parity bits on every hardware bus and aggregates
 13 parity-error detectors into a WED error word the host decodes
 (capi_sample_aligner/hdl-verliog/afu.v:73-76,151; check_errors in
-software-C,C++/src/main_test.c:64-100).  The TPU analog (SURVEY.md §5):
+software-C,C++/src/main_test.c:64-100).  The analog here (SURVEY.md §5):
 cheap structural validation of every packed batch before dispatch and of
 results after — catching packer bugs, corrupted transfers, and contract
 violations the way parity catches flipped bits.

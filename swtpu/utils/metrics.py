@@ -115,7 +115,7 @@ class GcupsMeter:
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[Union[str, Path]]) -> Iterator[None]:
     """jax.profiler trace (xprof/Perfetto) around a scoring region — the
-    waveform dump of the TPU world.  No-op when log_dir is None."""
+    waveform dump of the accelerator world.  No-op when log_dir is None."""
     if not log_dir:
         yield
         return

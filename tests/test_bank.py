@@ -42,15 +42,22 @@ def test_pack_ids_roundtrip():
     assert seen == set(range(len(targets)))
 
 
-def test_auto_backend_resolves_to_stream_on_tpu(monkeypatch):
-    # the product default must be the flagship kernel on TPU (the
-    # reference's bank instantiates its fastest array, ScoreBank_v2.v:117)
+def test_auto_backend_follows_platform_table(monkeypatch):
+    # auto follows the platform table: the wavefront kernel, compiled, on
+    # the GPU (the reference's bank instantiates its fastest array,
+    # ScoreBank_v2.v:117); the scan, with an interpreted kernel, on the CPU;
+    # a platform without a row is refused, never a silent fallback
     import jax
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert ScoreBank(backend="auto", interpret=True).backend == "stream"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    bank = ScoreBank(backend="auto")
+    assert bank.backend == "stream" and bank.plan.interpret is False
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert ScoreBank(backend="auto").backend == "scan"
+    bank = ScoreBank(backend="auto")
+    assert bank.backend == "scan" and bank.plan.interpret is True
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    with pytest.raises(ValueError, match="no scoring kernel"):
+        ScoreBank(backend="auto")
 
 
 def test_scorebank_random_ragged():
@@ -124,7 +131,8 @@ def test_score_pairs_stream_backend():
 
 
 def test_score_pairs_stream_short_queries_segmented():
-    # max query <= 32 routes through segments=4 with per-segment queries
+    # the <= 32-base pair set that once packed four queries per column:
+    # per-stream queries in one short tile
     rng = np.random.default_rng(12)
     n = 17
     queries = [rng.integers(0, 4, size=rng.integers(3, 30)).astype(np.int8) for _ in range(n)]
@@ -181,9 +189,9 @@ def test_pack_pair_streams_chunking_limit():
 
 
 def test_score_pairs_stream_mixed_long_queries():
-    """Round-4: a pair set mixing <=128-base and >128-base queries stays on
-    the wavefront — short pairs ride the pair streams, each distinct long
-    query's pairs chain query tiles (no silent column-path downgrade)."""
+    """A pair set mixing short and long queries stays on the wavefront:
+    every stream holds its own query, padded to the longest, and long
+    queries chain query tiles (no silent column-path downgrade)."""
     rng = np.random.default_rng(15)
     n = 18
     q_long_a = rng.integers(0, 4, size=500).astype(np.int8)
@@ -259,9 +267,9 @@ def test_stream_chunked_pipeline_parity():
 
 
 def test_loaded_database_multi_query():
-    """Round-4: device-resident database — pack once, serve many queries
-    (only the query register crosses the link per job), incl. chained
-    long queries up to the load-time capacity."""
+    """Device-resident database — pack once, serve many queries (only the
+    query crosses the link per job), incl. chained long queries: the
+    stream layout does not depend on the query, so any length serves."""
     rng = np.random.default_rng(21)
     targets = [
         rng.integers(0, 4, size=rng.integers(2, 70)).astype(np.int8)
@@ -269,18 +277,15 @@ def test_loaded_database_multi_query():
     ]
     targets[4] = np.zeros((0,), np.int8)  # zero-length read scores 0
     bank = ScoreBank(backend="stream", interpret=True)
-    db = bank.load_database(targets, max_query_len=300)
+    db = bank.load_database(targets)
     # two long queries in a row exercise repeated chained dispatch on
     # the resident [T, N] stream (no per-call relayout)
-    for qlen in (16, 100, 290, 260):
+    for qlen in (16, 100, 290, 260, 400):
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         want = score_many_vs_one(query, targets)
         res = bank.score_loaded(query, db)
         np.testing.assert_array_equal(res.scores, want)
         assert res.cells == qlen * sum(len(t) for t in targets)
-    # capacity is enforced, not silently wrong
-    with pytest.raises(ValueError, match="max_query_len"):
-        bank.score_loaded(rng.integers(0, 4, size=400).astype(np.int8), db)
     # wrong backend is rejected up front
     with pytest.raises(ValueError, match="stream backend"):
         ScoreBank(backend="scan").load_database(targets)
@@ -317,22 +322,22 @@ def test_loaded_database_many_and_topk():
 
 
 def test_loaded_database_segmented_short_queries():
-    """max_query_len <= 32 packs the resident database segments=4 (full
-    wavefront occupancy for the 32nt class); capacity overflow raises with
-    a reload hint."""
+    """The 32nt class on a resident database: a short query runs one short
+    tile (the occupancy segments once bought), and the padded-cell count
+    covers only that tile's rows."""
     rng = np.random.default_rng(24)
     targets = [
         rng.integers(0, 4, size=rng.integers(4, 50)).astype(np.int8)
         for _ in range(15)
     ]
     bank = ScoreBank(backend="stream", interpret=True)
-    db = bank.load_database(targets, max_query_len=32)
-    assert db.segments == 4
-    for qlen in (8, 30):
+    db = bank.load_database(targets)
+    T, N = db.stream.shape
+    for qlen in (8, 30, 50):
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         res = bank.score_loaded(query, db)
         np.testing.assert_array_equal(
             res.scores, score_many_vs_one(query, targets)
         )
-    with pytest.raises(ValueError, match="segmented capacity"):
-        bank.score_loaded(rng.integers(0, 4, size=50).astype(np.int8), db)
+        K = -(-qlen // bank.plan.tile)
+        assert res.padded_cells == T * N * K * -(-qlen // K)

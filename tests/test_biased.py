@@ -1,31 +1,27 @@
-"""SCORE_WIDTH wrap-parity: the `int16_biased` kernel mode vs the biased
-oracle (component #30, SURVEY.md §0).
+"""SCORE_WIDTH wrap-parity: the scan's and the stream kernel's
+`score_width` mode vs the biased oracle (component #30, SURVEY.md §0).
 
 The RTL carries every score in a SCORE_WIDTH-bit unsigned register biased by
 ZERO = 2**(SCORE_WIDTH-1) (SW_ProcessingElement_v1.0.v:15-20): adds wrap
 modulo 2**W, max is the unsigned compare, and the clamp-at-zero is the
 sign-bit test on M_score.  A score crossing 2**(W-1)-1 therefore wraps and
 is clamped back to zero in that cell.  `sw_score_single_biased` is the
-sequential contract for those semantics; the kernels' state_dtype
-"int16_biased" reproduces them vectorized (32-bit lanes carrying W-bit
-biased values — the VPU has no 12-bit datapath, so the register *width* is
-emulated, not stored).
+sequential contract for those semantics; `score_width=W` reproduces them
+vectorized (32-bit lanes carrying W-bit biased values — there is no 12-bit
+datapath, so the register *width* is emulated, not stored).
 """
 
-import jax
 import numpy as np
 import pytest
 
 from swtpu.ops import sentinel_pad_batch
-from swtpu.ops.pallas_kernel import sw_scores_pallas
+from swtpu.ops.scan import sw_scores_scan
 from swtpu.oracle import (
     biased_view,
     sw_score_batch,
     sw_score_single,
     sw_score_single_biased,
 )
-
-INTERPRET = jax.default_backend() != "tpu"
 
 
 def _biased_batch(qs, q_lens, ts, t_lens, score_width):
@@ -79,12 +75,7 @@ def test_biased_kernel_matches_oracle(score_width):
     t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
     want = _biased_batch(q, q_lens, t, t_lens, score_width)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(
-            qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1,
-            state_dtype="int16_biased", score_width=score_width,
-        )
-    )
+    got = np.asarray(sw_scores_scan(qp, tp, score_width=score_width))
     np.testing.assert_array_equal(got, want)
 
 
@@ -103,12 +94,7 @@ def test_biased_kernel_overflow_wrap():
     exact = sw_score_batch(q, t, lens, lens)
     assert want[0] != exact[0]  # the overflow case genuinely wraps
     qp, tp = sentinel_pad_batch(q, lens, t, lens)
-    got = np.asarray(
-        sw_scores_pallas(
-            qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1,
-            state_dtype="int16_biased", score_width=10,
-        )
-    )
+    got = np.asarray(sw_scores_scan(qp, tp, score_width=10))
     np.testing.assert_array_equal(got, want)
 
 
@@ -123,23 +109,19 @@ def test_biased_kernel_in_range_equals_exact():
     t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(
-            qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1,
-            state_dtype="int16_biased", score_width=12,
-        )
-    )
+    got = np.asarray(sw_scores_scan(qp, tp, score_width=12))
     np.testing.assert_array_equal(got, want)
 
 
 def test_scorebank_score_width_routes_biased():
-    # SWConfig.score_width selects a wrap-parity kernel for the whole bank
-    # path (CLI: `swtpu score --score-width N`), mirroring main_test.c's
-    # biased `result - 2048` reporting surface.  Round-4: auto resolves to
-    # the biased STREAM kernel on TPU, the column kernel elsewhere — both
-    # implement the identical contract.
+    # SWConfig.score_width selects wrap-parity for the whole bank path
+    # (CLI: `swtpu score --score-width N`), mirroring main_test.c's biased
+    # `result - 2048` reporting surface.  auto resolves through the
+    # platform table: the stream kernel on the GPU, the scan on the CPU —
+    # both implement the identical contract.
     from swtpu.bank import ScoreBank
     from swtpu.config import SWConfig
+    from swtpu.device import kernel_plan
 
     rng = np.random.default_rng(5)
     query = np.tile(np.arange(4, dtype=np.int8), 10)  # 40 bases, scores 200
@@ -147,8 +129,7 @@ def test_scorebank_score_width_routes_biased():
                for _ in range(6)]
     targets.append(query.copy())  # exact self-match: 200 > an 8-bit ceiling
     bank = ScoreBank(SWConfig(score_width=8, target_buckets=(40,)))
-    want_backend = "stream" if jax.default_backend() == "tpu" else "pallas"
-    assert bank.backend == want_backend
+    assert bank.backend == kernel_plan().backend
     got = bank.score_database(query, targets).scores
     want = np.array(
         [sw_score_single_biased(query, t, score_width=8) for t in targets],
@@ -159,11 +140,10 @@ def test_scorebank_score_width_routes_biased():
     assert exact == 200 and got[-1] < exact  # wrapped, not the exact score
 
 
-@pytest.mark.slow  # interpret-mode build of the chained kernel
+@pytest.mark.slow
 def test_biased_chained_long_query():
-    # m > QUERY_TILE routes through the tile-chained kernel; the inter-tile
-    # strips carry biased values, so wrap semantics survive chaining.  An
-    # identical 300-base pair scores 1500 exactly — past the 10-bit ceiling.
+    # a 300-base query in wrap mode: an identical 300-base pair scores 1500
+    # exactly — past the 10-bit ceiling.
     m = 300
     seq = np.tile(np.arange(4, dtype=np.int8), 75)
     rng = np.random.default_rng(4)
@@ -174,16 +154,11 @@ def test_biased_chained_long_query():
     want = _biased_batch(q, lens, t, lens, 10)
     assert want[0] < 1500
     qp, tp = sentinel_pad_batch(q, lens, t, lens)
-    got = np.asarray(
-        sw_scores_pallas(
-            qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1,
-            state_dtype="int16_biased", score_width=10,
-        )
-    )
+    got = np.asarray(sw_scores_scan(qp, tp, score_width=10))
     np.testing.assert_array_equal(got, want)
 
 
-# -------------- wrap-parity on the flagship stream kernel (round 4) -------
+# -------------- wrap-parity on the stream kernel ---------------------------
 
 
 def _stream_biased_workload(rng, qlen=40):
@@ -200,6 +175,7 @@ def _stream_biased_workload(rng, qlen=40):
 
 @pytest.mark.parametrize("rows", [1, 2, 4])
 def test_stream_kernel_biased_matches_oracle(rows):
+    # `rows`-row tiles: 40 query rows as 40, 20 or 10 chained tiles
     from swtpu.bank.streams import pack_streams
     from swtpu.oracle import sw_score_single_biased
     from swtpu.ops.pallas_stream import sw_scores_stream
@@ -211,17 +187,18 @@ def test_stream_kernel_biased_matches_oracle(rows):
         [sw_score_single_biased(query, t, score_width=W) for t in targets],
         np.int32,
     )
-    b = pack_streams(query, targets, n_streams=4, rows=rows)
+    b = pack_streams(query, targets, n_streams=4)
     got = np.asarray(
         sw_scores_stream(
             b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=True, rows=rows, score_width=W,
+            interpret=True, tile=rows, score_width=W,
         )
     )
     np.testing.assert_array_equal(got, want)
 
 
 def test_stream_kernel_biased_segmented():
+    # the 30-base case that once packed four queries per column
     from swtpu.bank.streams import pack_streams
     from swtpu.oracle import sw_score_single_biased
     from swtpu.ops.pallas_stream import sw_scores_stream
@@ -233,28 +210,30 @@ def test_stream_kernel_biased_segmented():
         [sw_score_single_biased(query, t, score_width=W) for t in targets],
         np.int32,
     )
-    b = pack_streams(query, targets, n_streams=8, segments=4, rows=1)
+    b = pack_streams(query, targets, n_streams=8)
     got = np.asarray(
         sw_scores_stream(
             b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=True, segments=4, rows=1, score_width=W,
+            interpret=True, score_width=W,
         )
     )
     np.testing.assert_array_equal(got, want)
 
 
 def test_stream_kernel_biased_rejects_f32():
+    # widths the wrap proof cannot carry are refused up front: past the
+    # 32-bit lane, and too narrow for the penalties
     from swtpu.bank.streams import pack_streams
     from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(10)
     query, targets = _stream_biased_workload(rng)
     b = pack_streams(query, targets, n_streams=4)
-    with pytest.raises(ValueError, match="int32"):
-        sw_scores_stream(
-            b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=True, state_dtype="float32", score_width=7,
-        )
+    args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
+    with pytest.raises(ValueError, match="out of range"):
+        sw_scores_stream(*args, interpret=True, score_width=31)
+    with pytest.raises(ValueError, match="too narrow"):
+        sw_scores_stream(*args, interpret=True, score_width=5)
 
 
 def test_scorebank_stream_backend_score_width():
@@ -283,11 +262,11 @@ def test_scorebank_stream_backend_score_width():
 
 
 def test_scorebank_stream_biased_long_pairs_keep_wrap():
-    """score_width + a >128-base query in score_pairs must keep wrap
-    semantics.  Round 5: the chained STREAM tiles carry biased boundary
-    strips (SW_ProcessingElement_v1.0.v:15-20 composed with the chaining
-    ports, ScoringModule_v1.1.v:36-54), so mixed pair sets stay on the
-    wavefront at full wrap parity — no column-kernel detour."""
+    """score_width + a long query in score_pairs must keep wrap semantics:
+    the chained stream tiles carry biased boundary strips
+    (SW_ProcessingElement_v1.0.v:15-20 composed with the chaining ports,
+    ScoringModule_v1.1.v:36-54), so mixed pair sets stay on the wavefront
+    at full wrap parity."""
     from swtpu.bank import ScoreBank
     from swtpu.config import SWConfig
     from swtpu.oracle import sw_score_single_biased
@@ -314,12 +293,12 @@ def test_scorebank_stream_biased_long_pairs_keep_wrap():
 
 
 def test_stream_long_kernel_biased_matches_oracle():
-    """The chained long-query kernel in wrap mode, directly: inter-tile
-    D/G/H strips carry biased values; parity vs the contract oracle incl.
-    a pair whose exact score crosses the W-bit ceiling (wrap fires)."""
-    from swtpu.bank.streams import pack_streams_long
+    """The chained tiles in wrap mode, directly: inter-tile D/G strips
+    carry biased values; parity vs the contract oracle incl. a pair whose
+    exact score crosses the W-bit ceiling (wrap fires)."""
+    from swtpu.bank.streams import pack_streams
     from swtpu.oracle import sw_score_single_biased
-    from swtpu.ops.pallas_stream import sw_scores_stream_long
+    from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(20)
     W = 10
@@ -333,20 +312,19 @@ def test_stream_long_kernel_biased_matches_oracle():
         np.int32,
     )
     assert want[0] < 1500  # the wrap actually fires
-    b = pack_streams_long(query, targets, n_streams=4, rows=4)
+    b = pack_streams(query, targets, n_streams=4)
     got = np.asarray(
-        sw_scores_stream_long(
+        sw_scores_stream(
             b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=True, rows=4, score_width=W,
+            interpret=True, tile=128, score_width=W,
         )
     )
     np.testing.assert_array_equal(got, want)
 
 
 def test_scorebank_stream_biased_long_database():
-    """ScoreBank(stream, score_width) serves >128-base queries on the
-    chained wavefront (round-4 verdict #4: no more ~6x column-kernel
-    cliff), bit-exact vs the biased oracle."""
+    """ScoreBank(stream, score_width) serves long queries on the chained
+    wavefront, bit-exact vs the biased oracle."""
     from swtpu.bank import ScoreBank
     from swtpu.config import SWConfig
     from swtpu.oracle import sw_score_single_biased
@@ -368,8 +346,8 @@ def test_scorebank_stream_biased_long_database():
 
 
 def test_loaded_db_biased_long_query():
-    """score_width + >128-base queries now ride the device-resident
-    database too (chained biased tiles on the kernel-layout entry)."""
+    """score_width + long queries ride the device-resident database too
+    (chained biased tiles on the kernel-layout entry)."""
     from swtpu.bank import ScoreBank
     from swtpu.config import SWConfig
     from swtpu.oracle import sw_score_single_biased
@@ -379,7 +357,7 @@ def test_loaded_db_biased_long_query():
     targets = [rng.integers(0, 4, size=int(rng.integers(4, 50))).astype(np.int8)
                for _ in range(7)]
     bank = ScoreBank(SWConfig(score_width=W), backend="stream", interpret=True)
-    db = bank.load_database(targets, max_query_len=256)
+    db = bank.load_database(targets)
     for qlen in (60, 140, 256):
         query = np.tile(np.arange(4, dtype=np.int8), qlen // 4 + 1)[:qlen]
         want = np.array(

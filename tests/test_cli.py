@@ -38,7 +38,7 @@ def test_score_backend_scan(tmp_path):
 
 
 def test_score_width_flag(tmp_path):
-    # --score-width routes through the wrap-parity column kernel; at W=12
+    # --score-width routes through the wrap-parity mode; at W=12
     # these small reads stay in range, so the output equals the exact
     # oracle (the identity regime that makes int32 hardware-compatible)
     fa = tmp_path / "gen.fa"
@@ -72,17 +72,21 @@ def test_diff_detects_mismatch(tmp_path):
 
 
 def test_score_width_wrong_backend_exits_cleanly(tmp_path):
-    # ADVICE r3: argument errors exit via SystemExit with a message, never a
-    # raw ScoreBank ValueError traceback
+    # argument errors exit via SystemExit with a message, never a raw
+    # kernel ValueError traceback
     fa = tmp_path / "gen.fa"
     main(["generate", "-n", "4", "-L", "24", "-o", str(fa), "--seed", "7"])
-    with pytest.raises(SystemExit, match="stream or column kernel"):
+    with pytest.raises(SystemExit, match="2..30"):
         main(["score", "-q", str(fa), "-l", str(fa),
-              "--score-width", "12", "--backend", "scan"])
-    # the stream backend DOES support wrap-parity (round-4 biased lanes)
-    out = tmp_path / "biased_stream.txt"
-    assert main(["score", "-q", str(fa), "-l", str(fa), "-o", str(out),
-                 "--score-width", "12", "--backend", "stream"]) == 0
+              "--score-width", "40", "--backend", "scan"])
+    # both backends support wrap-parity, with identical output
+    outs = []
+    for backend in ("scan", "stream"):
+        out = tmp_path / f"biased_{backend}.txt"
+        assert main(["score", "-q", str(fa), "-l", str(fa), "-o", str(out),
+                     "--score-width", "12", "--backend", backend]) == 0
+        outs.append(str(out))
+    assert main(["diff", *outs]) == 0
 
 
 def test_score_long_read_not_capped_on_stream_backend(tmp_path):

@@ -203,16 +203,16 @@ def test_pairs_stream_path_catches_corruption(monkeypatch):
 def test_long_stream_path_catches_corrupt_batch(monkeypatch):
     import swtpu.bank.streams as streams_mod
 
-    real_pack = streams_mod.pack_streams_long
+    real_pack = streams_mod.pack_streams
 
     def corrupting_pack(*a, **kw):
         b = real_pack(*a, **kw)
         b.stream[0, 2] = 12  # flagged pad-class garbage
         return b
 
-    monkeypatch.setattr(streams_mod, "pack_streams_long", corrupting_pack)
+    monkeypatch.setattr(streams_mod, "pack_streams", corrupting_pack)
     rng = np.random.default_rng(5)
     targets = [rng.integers(0, 4, size=10).astype(np.int8) for _ in range(6)]
-    query = rng.integers(0, 4, size=200).astype(np.int8)  # > 128: long path
+    query = rng.integers(0, 4, size=200).astype(np.int8)  # chained tiles
     with pytest.raises(IntegrityError):
         _mk_stream_bank().score_database(query, targets)

@@ -1,15 +1,14 @@
-"""Pallas kernel == oracle (interpreter mode on CPU; real TPU in bench)."""
+"""Dense column path == oracle: the cases of the former column kernel,
+now run by the plain scan (`sw_scores_scan`), which XLA fuses on every
+backend."""
 
-import jax
 import numpy as np
 import pytest
 
 from swtpu.config import Penalties
 from swtpu.ops import sentinel_pad_batch
-from swtpu.ops.pallas_kernel import sw_scores_pallas
+from swtpu.ops.scan import sw_scores_scan
 from swtpu.oracle import sw_score_batch
-
-INTERPRET = jax.default_backend() != "tpu"
 
 
 def _random_ragged(rng, B, m_max, n_max):
@@ -20,8 +19,6 @@ def _random_ragged(rng, B, m_max, n_max):
     return q, q_lens, t, t_lens
 
 
-# Interpret-mode runs are slow, so CPU tests stay small; the same kernel is
-# exercised at full size on real hardware by test_pallas_on_tpu (and bench.py).
 @pytest.mark.parametrize(
     "B,m,n,seed",
     [(8, 8, 8, 0), (16, 32, 32, 1), (4, 16, 64, 3)],
@@ -31,9 +28,7 @@ def test_pallas_matches_oracle(B, m, n, seed):
     q, q_lens, t, t_lens = _random_ragged(rng, B, m, n)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)
 
 
@@ -43,9 +38,7 @@ def test_pallas_custom_penalties():
     pen = Penalties(match=2, mismatch=-3, gap_open=-4, gap_extend=-1)
     want = sw_score_batch(q, t, q_lens, t_lens, pen)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, pen, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
+    got = np.asarray(sw_scores_scan(qp, tp, pen))
     np.testing.assert_array_equal(got, want)
 
 
@@ -55,40 +48,24 @@ def test_pallas_block_padding():
     q, q_lens, t, t_lens = _random_ragged(rng, 5, 16, 16)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.skipif(INTERPRET, reason="needs real TPU (set SWTPU_TEST_TPU=1)")
-def test_pallas_on_tpu_full_size():
-    rng = np.random.default_rng(42)
-    q, q_lens, t, t_lens = _random_ragged(rng, 64, 128, 128)
-    want = sw_score_batch(q, t, q_lens, t_lens)
-    qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(sw_scores_pallas(qp, tp, block_pairs=1024))
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)
 
 
 def test_pallas_long_query_sublane():
-    # m > 128: the sublane-major layout extends the query dim freely (the
-    # chaining-ports intent); prefix scan runs log2(m) steps
+    # m > 128: the query dim extends freely (the chaining-ports intent);
+    # the prefix scan runs log2(m) steps
     rng = np.random.default_rng(21)
     q, q_lens, t, t_lens = _random_ragged(rng, 4, 136, 16)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)
 
 
-# Query-tile chaining (m > QUERY_TILE): last-row M/I strips carried between
-# 256-row tiles — the realization of the reference's reserved chaining ports
-# (ScoreBank/ScoringModule_v1.1.v:36-54) up to the LEN_WIDTH=12 -> 4095-base
-# envelope (ScoreBank/ScoreBank_v2.v:14-15).
-@pytest.mark.slow  # interpret-mode build of the chained kernel: 18-97s each
+# Long queries up to the LEN_WIDTH=12 -> 4095-base envelope
+# (ScoreBank/ScoreBank_v2.v:14-15).
+@pytest.mark.slow
 @pytest.mark.parametrize(
     "B,m,n,seed",
     [(6, 300, 48, 5), (4, 1024, 32, 6), (3, 4000, 24, 7)],
@@ -101,15 +78,13 @@ def test_pallas_chained_long_query(B, m, n, seed):
     t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.slow
 def test_pallas_chained_gap_spans_tiles():
-    # a long gap crossing the tile boundary exercises the I-strip carry
+    # a 300-base gap inside one long query column
     rng = np.random.default_rng(9)
     tseq = rng.integers(0, 4, size=80).astype(np.int8)
     # query = target's first 40 bases + 300 junk-free inserts + last 40
@@ -122,21 +97,15 @@ def test_pallas_chained_gap_spans_tiles():
     qp, tp = sentinel_pad_batch(
         qs, np.array([len(q)]), ts, np.array([80])
     )
-    got = np.asarray(
-        sw_scores_pallas(qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1)
-    )
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)
 
 
 def test_pallas_f32_state():
+    # the case the float32-state column kernel ran; the scan is int32
     rng = np.random.default_rng(22)
     q, q_lens, t, t_lens = _random_ragged(rng, 8, 24, 24)
     want = sw_score_batch(q, t, q_lens, t_lens)
     qp, tp = sentinel_pad_batch(q, q_lens, t, t_lens)
-    got = np.asarray(
-        sw_scores_pallas(
-            qp, tp, block_pairs=128, interpret=INTERPRET, unroll=1,
-            state_dtype="float32",
-        )
-    )
+    got = np.asarray(sw_scores_scan(qp, tp))
     np.testing.assert_array_equal(got, want)

@@ -52,12 +52,13 @@ def test_sharded_topk_merge(mesh):
 
 
 def test_sharded_pallas_interpret(mesh):
-    # the pallas kernel also runs under shard_map (interpret on CPU)
+    # the dense scorer under shard_map in wrap-parity mode (the mode the
+    # column kernel carried): W=12 on short reads is the identity regime
     rng = np.random.default_rng(2)
     q, ql, t, tl = _batch(rng, 16, 8, 8)
     want = sw_score_batch(q, t, ql, tl)
     qp, tp = sentinel_pad_batch(q, ql, t, tl)
-    scorer = make_sharded_scorer(mesh, backend="pallas", interpret=True)
+    scorer = make_sharded_scorer(mesh, score_width=12)
     got = np.asarray(scorer(qp, tp))
     np.testing.assert_array_equal(got, want)
 
@@ -73,7 +74,8 @@ def test_multihost_api_single_process(mesh):
     query = rng.integers(0, 4, size=16).astype(np.int8)
     want = score_many_vs_one(query, targets)
     top_s, top_ids, local = score_database_multihost(
-        query, targets, np.arange(24, dtype=np.int32), mesh=mesh, k=4
+        query, targets, np.arange(24, dtype=np.int32), mesh=mesh, k=4,
+        backend="stream",
     )
     np.testing.assert_array_equal(local, want)
     for s, i in zip(top_s, top_ids):
@@ -136,8 +138,8 @@ def test_sharded_stream_topk(mesh):
 
 
 def test_sharded_stream_multirow():
-    # the multi-row kernel shards identically: pack with rows=4, run the
-    # sharded scorer with the same rows
+    # 4-row tiles shard identically: a 20-row query chains 5 tiles per
+    # shard
     import jax
     from swtpu.bank.streams import pack_streams_sharded, scatter_sharded_scores
     from swtpu.oracle import score_many_vs_one
@@ -151,10 +153,10 @@ def test_sharded_stream_multirow():
     ]
     query = rng.integers(0, 4, size=20).astype(np.int8)
     batch = pack_streams_sharded(
-        query, targets, n_shards=n_dev, n_streams=8, rows=4
+        query, targets, n_shards=n_dev, n_streams=8
     )
     mesh = make_mesh(n_dev)
-    scorer = make_sharded_stream_scorer(mesh, interpret=True, rows=4, k=2)
+    scorer = make_sharded_stream_scorer(mesh, interpret=True, tile=4, k=2)
     s, ts, tids = scorer(
         batch.q, batch.stream, batch.emit_stream,
         batch.emit_step.astype(np.int32), batch.ids,
@@ -215,7 +217,7 @@ def test_sharded_stream_topk_tie_consistency(mesh):
 def test_local_topk_two_level_exact():
     """The two-level per-shard top-k (large-R path) is exact, including
     (score desc, id asc) tie preference, against a numpy reference —
-    mesh-free, so it runs in the single-chip TPU suite too."""
+    mesh-free, so it runs in the single-device suite too."""
     import jax.numpy as jnp
 
     from swtpu.parallel.sharded import _local_topk
@@ -246,8 +248,8 @@ def test_local_topk_large_r_collective(mesh):
 
 
 def test_multihost_api_long_query(mesh):
-    """Round-4 review fix: the stream-backed production API must serve
-    >128-base queries (sharded chained tiles), matching the oracle."""
+    """The stream-backed production API serves long queries (sharded
+    chained tiles), matching the oracle."""
     from swtpu.oracle import score_many_vs_one
     from swtpu.parallel.multihost import score_database_multihost
 
@@ -257,7 +259,8 @@ def test_multihost_api_long_query(mesh):
     query = rng.integers(0, 4, size=200).astype(np.int8)
     want = score_many_vs_one(query, targets)
     top_s, top_ids, local = score_database_multihost(
-        query, targets, np.arange(16, dtype=np.int32), mesh=mesh, k=3
+        query, targets, np.arange(16, dtype=np.int32), mesh=mesh, k=3,
+        backend="stream",
     )
     np.testing.assert_array_equal(local, want)
     for s, i in zip(top_s, top_ids):
@@ -278,13 +281,13 @@ def test_multihost_stream_steps_pinning(mesh):
     want = score_many_vs_one(query, targets)
     _, _, local = score_database_multihost(
         query, targets, np.arange(16, dtype=np.int32), mesh=mesh, k=3,
-        stream_steps=512,
+        stream_steps=512, backend="stream",
     )
     np.testing.assert_array_equal(local, want)
     with pytest.raises(ValueError, match="stream_steps"):
         score_database_multihost(
             query, targets, np.arange(16, dtype=np.int32), mesh=mesh, k=3,
-            stream_steps=32,
+            stream_steps=32, backend="stream",
         )
 
 
@@ -325,5 +328,5 @@ def test_multihost_stream_steps_chunk_validation(mesh):
     with pytest.raises(ValueError, match="multiple of"):
         score_database_multihost(
             query, targets, np.arange(8, dtype=np.int32), mesh=mesh,
-            stream_steps=100,
+            stream_steps=100, backend="stream",
         )

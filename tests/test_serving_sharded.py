@@ -45,36 +45,33 @@ def test_loaded_sharded_parity(mesh, bank):
 
 
 def test_loaded_sharded_long_query_chained(mesh, bank):
-    """>128-base queries chain tiles per shard (the chaining-port intent
-    under shard_map); capacity comes from load-time max_query_len."""
+    """Long queries chain tiles per shard (the chaining-port intent under
+    shard_map); the resident layout serves any query length."""
     rng = np.random.default_rng(11)
     targets = _targets(rng, 19)
-    db = bank.load_database_sharded(targets, mesh, max_query_len=300)
-    assert db.k_max == 3
-    for qlen in (64, 130, 300):
+    db = bank.load_database_sharded(targets, mesh)
+    for qlen in (64, 130, 300, 385):
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         res = bank.score_loaded_sharded(query, db)
         np.testing.assert_array_equal(
             res.scores, score_many_vs_one(query, targets)
         )
-    over = rng.integers(0, 4, size=385).astype(np.int8)  # needs 4 tiles
-    with pytest.raises(ValueError, match="reload"):
-        bank.score_loaded_sharded(over, db)
 
 
 def test_loaded_sharded_segmented_short_queries(mesh, bank):
-    """max_query_len <= 32 packs segments=4 per lane column, same
-    auto-segmentation as the single-chip loader."""
+    """The 32nt class over the mesh: a short query runs one short tile per
+    shard, same as the single-device loader."""
     rng = np.random.default_rng(12)
     targets = _targets(rng, 23, lo=2, hi=25)
-    db = bank.load_database_sharded(targets, mesh, max_query_len=32)
-    assert db.segments == 4
+    db = bank.load_database_sharded(targets, mesh)
     query = rng.integers(0, 4, size=30).astype(np.int8)
     res = bank.score_loaded_sharded(query, db)
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, targets))
-    over = rng.integers(0, 4, size=40).astype(np.int8)
-    with pytest.raises(ValueError, match="segmented capacity"):
-        bank.score_loaded_sharded(over, db)
+    longer = rng.integers(0, 4, size=40).astype(np.int8)
+    res = bank.score_loaded_sharded(longer, db)
+    np.testing.assert_array_equal(
+        res.scores, score_many_vs_one(longer, targets)
+    )
 
 
 def test_topk_loaded_sharded_tie_consistency(mesh, bank):
@@ -148,7 +145,7 @@ def test_loaded_sharded_requires_stream_backend(mesh):
 
 def test_loaded_sharded_biased_long_query(mesh):
     """score_width composes with sharded serving at any query length
-    (round-5 biased chained tiles under shard_map)."""
+    (biased chained tiles under shard_map)."""
     from swtpu.oracle import sw_score_single_biased
 
     rng = np.random.default_rng(17)
@@ -157,7 +154,7 @@ def test_loaded_sharded_biased_long_query(mesh):
         SWConfig(score_width=W), backend="stream", interpret=True
     )
     targets = _targets(rng, 13)
-    db = wbank.load_database_sharded(targets, mesh, max_query_len=256)
+    db = wbank.load_database_sharded(targets, mesh)
     query = np.tile(np.arange(4, dtype=np.int8), 40)  # 160 nt, self-sim
     want = np.array(
         [sw_score_single_biased(query, t, score_width=W) for t in targets],

@@ -1,21 +1,14 @@
-"""Streamed wavefront kernel: packing, kernel parity, ScoreBank backend."""
+"""Streamed wavefront kernel: packing, kernel parity, ScoreBank backend.
 
-import jax
+Off the GPU the kernel runs in the Pallas interpreter (the `interpret`
+fixture); the same tests compile it on a GPU."""
+
 import numpy as np
 import pytest
 
 from swtpu.bank.streams import pack_streams, score_streams
 from swtpu.config import Penalties, SWConfig
 from swtpu.oracle import score_many_vs_one
-
-INTERPRET = jax.default_backend() != "tpu"
-
-
-def S_(n):
-    """Stream count: interpret mode exercises tiny counts; compiled
-    Mosaic (SWTPU_TEST_TPU=1) needs the 128-lane multiple."""
-    return n if INTERPRET else 128
-
 
 
 def _targets(rng, n, lo=3, hi=60):
@@ -40,68 +33,69 @@ def test_pack_streams_structure():
     assert b.cells == sum(16 * len(t) for t in targets)
 
 
-def test_stream_kernel_matches_oracle():
+def test_stream_kernel_matches_oracle(interpret):
     rng = np.random.default_rng(1)
     targets = _targets(rng, 12)
     query = rng.integers(0, 4, size=17).astype(np.int8)
     want = score_many_vs_one(query, targets)
-    got = score_streams(query, targets, n_streams=S_(8), interpret=INTERPRET)
+    got = score_streams(query, targets, n_streams=8, interpret=interpret)
     np.testing.assert_array_equal(got, want)
 
 
-def test_stream_kernel_custom_penalties_and_empty_reads():
+def test_stream_kernel_custom_penalties_and_empty_reads(interpret):
     rng = np.random.default_rng(2)
     targets = _targets(rng, 6)
     targets.insert(2, np.zeros((0,), np.int8))  # empty read scores 0
     query = rng.integers(0, 4, size=9).astype(np.int8)
     pen = Penalties(match=3, mismatch=-1, gap_open=-3, gap_extend=-2)
     want = score_many_vs_one(query, targets, pen)
-    got = score_streams(query, targets, n_streams=S_(4), penalties=pen, interpret=INTERPRET)
+    got = score_streams(query, targets, n_streams=4, penalties=pen, interpret=interpret)
     np.testing.assert_array_equal(got, want)
     assert got[2] == 0
 
 
-def test_scorebank_stream_backend():
+def test_scorebank_stream_backend(interpret):
     rng = np.random.default_rng(3)
     targets = _targets(rng, 20, lo=5, hi=100)
     query = rng.integers(0, 4, size=31).astype(np.int8)
     want = score_many_vs_one(query, targets)
     from swtpu.bank import ScoreBank
 
-    bank = ScoreBank(SWConfig(block_pairs=32), backend="stream", interpret=INTERPRET)
+    bank = ScoreBank(SWConfig(), backend="stream", interpret=interpret)
     res = bank.score_database(query, targets)
     np.testing.assert_array_equal(res.scores, want)
     assert res.cells == sum(31 * len(t) for t in targets)
 
 
 @pytest.mark.parametrize("segments", [2, 4])
-def test_segmented_stream_matches_oracle(segments):
+def test_segmented_stream_matches_oracle(segments, interpret):
+    # the reads and short queries that once packed `segments` queries per
+    # column; a short query now takes a short tile, one query per stream
     rng = np.random.default_rng(segments)
     targets = _targets(rng, 14, lo=2, hi=50)
     qcap = 128 // segments
     query = rng.integers(0, 4, size=qcap - 3).astype(np.int8)
     want = score_many_vs_one(query, targets)
     got = score_streams(
-        query, targets, n_streams=S_(4) * segments, interpret=INTERPRET,
-        segments=segments,
+        query, targets, n_streams=4 * segments, interpret=interpret,
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_stream_backend_long_query_fallback():
-    # queries beyond the 128-row pipe route to the column path transparently
+def test_stream_backend_long_query_fallback(interpret):
+    # queries longer than one tile chain tiles transparently
     rng = np.random.default_rng(77)
     targets = _targets(rng, 8, lo=5, hi=60)
     query = rng.integers(0, 4, size=200).astype(np.int8)
     want = score_many_vs_one(query, targets)
     from swtpu.bank import ScoreBank
 
-    bank = ScoreBank(SWConfig(target_buckets=(32, 128)), backend="stream", interpret=INTERPRET)
+    bank = ScoreBank(SWConfig(target_buckets=(32, 128)), backend="stream", interpret=interpret)
     res = bank.score_database(query, targets)
     np.testing.assert_array_equal(res.scores, want)
 
 
-def test_stream_wire_roundtrip_and_parity():
+def test_stream_wire_roundtrip_and_parity(interpret):
     # 2-bit wire format: pack_stream_wire -> device unpack -> same scores
     from swtpu.bank.streams import pack_stream_wire, pack_streams
     from swtpu.ops.pallas_stream import (
@@ -112,7 +106,7 @@ def test_stream_wire_roundtrip_and_parity():
     targets = _targets(rng, 18, lo=3, hi=60)
     query = rng.integers(0, 4, size=23).astype(np.int8)
     want = score_many_vs_one(query, targets)
-    b = pack_streams(query, targets, n_streams=S_(8))
+    b = pack_streams(query, targets, n_streams=8)
     codes, flags = pack_stream_wire(b.stream)
     # wire is 2.5 bits/char
     assert codes.nbytes + flags.nbytes == b.stream.nbytes // 4 + b.stream.nbytes // 8
@@ -123,7 +117,7 @@ def test_stream_wire_roundtrip_and_parity():
     got = np.asarray(
         sw_scores_stream_packed(
             b.q, codes, flags, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=INTERPRET,
+            interpret=interpret,
         )
     )
     np.testing.assert_array_equal(got, want)
@@ -131,7 +125,7 @@ def test_stream_wire_roundtrip_and_parity():
     got_ref = np.asarray(
         sw_scores_stream(
             b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=INTERPRET,
+            interpret=interpret,
         )
     )
     np.testing.assert_array_equal(got, got_ref)
@@ -139,17 +133,17 @@ def test_stream_wire_roundtrip_and_parity():
 
 @pytest.mark.parametrize(
     "rows",
-    [2, 4, 8, pytest.param(16, marks=pytest.mark.slow)],  # R=16 interpret: 46s
+    [2, 4, 8, pytest.param(16, marks=pytest.mark.slow)],
 )
-def test_multirow_stream_matches_oracle(rows):
-    # multi-row kernel (R query rows folded per sublane): same scores,
-    # smaller drain, R-fold fewer sublane rolls
+def test_multirow_stream_matches_oracle(rows, interpret):
+    # `rows` query rows per thread: a 97-row query chains ceil(97/rows)
+    # tiles; every tile height gives the same scores
     rng = np.random.default_rng(100 + rows)
     targets = _targets(rng, 17, lo=2, hi=70)
     query = rng.integers(0, 4, size=97).astype(np.int8)
     want = score_many_vs_one(query, targets)
     got = score_streams(
-        query, targets, n_streams=S_(8), interpret=INTERPRET, rows=rows
+        query, targets, n_streams=8, interpret=interpret, tile=rows
     )
     np.testing.assert_array_equal(got, want)
 
@@ -162,83 +156,31 @@ def test_multirow_stream_matches_oracle(rows):
         pytest.param(16, 4, marks=pytest.mark.slow),
     ],
 )
-def test_multirow_segmented_stream(rows, segments):
-    if rows == 16 and segments > 1 and not INTERPRET:
-        # measured Mosaic limitation (_validate raises): rows=16 supports
-        # segments=1 only on hardware; the config stays interpret-verified
-        pytest.skip("rows=16 segmented is interpret-only (Mosaic limitation)")
+def test_multirow_segmented_stream(rows, segments, interpret):
+    # the short-query cases that once packed `segments` queries per column,
+    # at tile height `rows`, one query per stream
     rng = np.random.default_rng(200 + rows + segments)
     targets = _targets(rng, 13, lo=2, hi=40)
     qcap = 128 // segments
     query = rng.integers(0, 4, size=qcap - 5).astype(np.int8)
     want = score_many_vs_one(query, targets)
     got = score_streams(
-        query, targets, n_streams=S_(4) * segments, interpret=INTERPRET,
-        segments=segments, rows=rows,
+        query, targets, n_streams=4 * segments, interpret=interpret,
+        tile=rows,
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_multirow_full_length_query():
-    # full 128-base query at rows=4: capacity is unchanged by folding
+def test_multirow_full_length_query(interpret):
+    # full 128-base query in 4-row tiles: 32 chained tiles
     rng = np.random.default_rng(300)
     targets = _targets(rng, 9, lo=5, hi=90)
     query = rng.integers(0, 4, size=128).astype(np.int8)
     want = score_many_vs_one(query, targets)
     got = score_streams(
-        query, targets, n_streams=S_(8), interpret=INTERPRET, rows=4
+        query, targets, n_streams=8, interpret=interpret, tile=4
     )
     np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("rows", [1, 8])
-@pytest.mark.skipif(
-    not INTERPRET,
-    reason="Mosaic rejects 16-bit sublane rotates on TPU (BENCH_NOTES.md); "
-    "int16 stays a CPU-verified numeric-width check",
-)
-def test_stream_int16_state(rows):
-    # int16 state is exact for all reachable scores (max 128*5=640; G >= -12,
-    # I >= -16 — bounded, SURVEY.md §0); the accumulator scratch widens to a
-    # full (16, S) sublane tile for 16-bit dtypes
-    rng = np.random.default_rng(400 + rows)
-    targets = _targets(rng, 15, lo=2, hi=80)
-    query = rng.integers(0, 4, size=113).astype(np.int8)
-    want = score_many_vs_one(query, targets)
-    got = score_streams(
-        query, targets, n_streams=S_(8), interpret=INTERPRET, rows=rows,
-        state_dtype="int16",
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("rows", [1, 4])
-def test_stream_float32_state(rows):
-    # f32 state is exact for all reachable scores (integers well inside the
-    # 2^24 mantissa); a live throughput lever on hardware (BENCH_NOTES.md
-    # microbench: f32 add/max faster than int32 in latency-bound chains)
-    rng = np.random.default_rng(600 + rows)
-    targets = _targets(rng, 12, lo=2, hi=70)
-    query = rng.integers(0, 4, size=97).astype(np.int8)
-    want = score_many_vs_one(query, targets)
-    got = score_streams(
-        query, targets, n_streams=S_(8), interpret=INTERPRET, rows=rows,
-        state_dtype="float32",
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_stream_rows16_rejects_int16():
-    import jax.numpy as jnp
-    from swtpu.ops.pallas_stream import sw_scores_stream_strip
-
-    q = np.zeros((8, 128), np.int8)
-    stream = np.zeros((8, 32), np.int8)
-    with pytest.raises(ValueError, match="32-bit"):
-        sw_scores_stream_strip(
-            jnp.asarray(q), jnp.asarray(stream), interpret=True, rows=16,
-            state_dtype="int16",
-        )
 
 
 def test_large_ragged_list_densifies_to_greedy_packing():
@@ -288,89 +230,84 @@ def test_large_ragged_list_without_native_toolchain(monkeypatch):
     np.testing.assert_array_equal(b.emit_step[:512], ref.emit_step)
 
 
-def test_stream_long_kernel_matches_oracle():
-    # query-tile chaining: K 128-row wavefront tiles carry the tail-row
-    # D/G/H strips between tiles (the reference's reserved chaining ports,
-    # ScoreBank/ScoringModule_v1.1.v:36-54).  rows=2 keeps the interpret-mode
-    # kernel body small; rows=16 (the hardware default) is covered by the
-    # TPU-gated test below.
-    from swtpu.bank.streams import pack_streams_long
-    from swtpu.ops.pallas_stream import sw_scores_stream_long
+def test_stream_long_kernel_matches_oracle(interpret):
+    # query-tile chaining: a 300-row query as 3 tiles of 100 rows carrying
+    # the last-row D/G strips between tiles (the reference's reserved
+    # chaining ports, ScoreBank/ScoringModule_v1.1.v:36-54)
+    from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(500)
     targets = _targets(rng, 8, lo=3, hi=50)
     query = rng.integers(0, 4, size=300).astype(np.int8)  # K=3 tiles
     want = score_many_vs_one(query, targets)
-    b = pack_streams_long(query, targets, n_streams=S_(8), rows=2)
+    b = pack_streams(query, targets, n_streams=8)
     got = np.asarray(
-        sw_scores_stream_long(
+        sw_scores_stream(
             b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=INTERPRET, rows=2,
+            interpret=interpret, tile=128,
         )
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_stream_long_single_tile_matches_short_path():
-    # K=1 chaining (boundary strips all zero) must equal the plain kernel
-    from swtpu.bank.streams import pack_streams_long
-    from swtpu.ops.pallas_stream import sw_scores_stream_long
+def test_stream_long_single_tile_matches_short_path(interpret):
+    # a tile tall enough for the whole query (no chaining) must equal the
+    # chained form of the same query
+    from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(501)
     targets = _targets(rng, 6, lo=2, hi=40)
     query = rng.integers(0, 4, size=90).astype(np.int8)
     want = score_many_vs_one(query, targets)
-    b = pack_streams_long(query, targets, n_streams=S_(8), rows=1)
-    got = np.asarray(
-        sw_scores_stream_long(
-            b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=INTERPRET, rows=1,
-        )
-    )
-    np.testing.assert_array_equal(got, want)
+    b = pack_streams(query, targets, n_streams=8)
+    args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
+    one = np.asarray(sw_scores_stream(*args, interpret=interpret, tile=128))
+    chained = np.asarray(sw_scores_stream(*args, interpret=interpret, tile=30))
+    np.testing.assert_array_equal(one, want)
+    np.testing.assert_array_equal(chained, want)
 
 
-def test_stream_long_packed_wire_parity():
-    # long-query path on the 2-bit wire format (round-2 advisor, low):
-    # identical scores to the unpacked chained kernel
-    from swtpu.bank.streams import pack_stream_wire, pack_streams_long
-    from swtpu.ops.pallas_stream import sw_scores_stream_long_packed
+def test_stream_long_packed_wire_parity(interpret):
+    # chained tiles on the 2-bit wire format: identical scores to the
+    # unpacked chained kernel
+    from swtpu.bank.streams import pack_stream_wire
+    from swtpu.ops.pallas_stream import sw_scores_stream_packed
 
     rng = np.random.default_rng(503)
     targets = _targets(rng, 7, lo=3, hi=45)
     query = rng.integers(0, 4, size=200).astype(np.int8)  # K=2 tiles
     want = score_many_vs_one(query, targets)
-    b = pack_streams_long(query, targets, n_streams=S_(8), rows=2)
+    b = pack_streams(query, targets, n_streams=8)
     codes, flags = pack_stream_wire(b.stream)
     got = np.asarray(
-        sw_scores_stream_long_packed(
+        sw_scores_stream_packed(
             b.q, codes, flags, b.emit_stream, b.emit_step.astype(np.int32),
-            interpret=INTERPRET, rows=2,
+            interpret=interpret, tile=128,
         )
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_scorebank_stream_long_query():
-    # ScoreBank routes >128-base queries to the chained stream path
+def test_scorebank_stream_long_query(interpret):
+    # ScoreBank scores >1-tile queries on the chained stream path
     rng = np.random.default_rng(502)
     targets = _targets(rng, 10, lo=3, hi=60)
     query = rng.integers(0, 4, size=257).astype(np.int8)
     want = score_many_vs_one(query, targets)
     from swtpu.bank import ScoreBank
 
-    bank = ScoreBank(SWConfig(block_pairs=32), backend="stream", interpret=INTERPRET)
+    bank = ScoreBank(SWConfig(), backend="stream", interpret=interpret)
     res = bank.score_database(query, targets)
     np.testing.assert_array_equal(res.scores, want)
     assert res.cells == sum(257 * len(t) for t in targets)
 
 
 @pytest.mark.slow
-def test_fuzz_differential_sweep():
+def test_fuzz_differential_sweep(interpret):
     """Seeded randomized differential sweep: random penalties, query
-    lengths, segment/row configs, ragged (incl. empty) reads — every
-    combination must match the numpy oracle bit-exactly.  The swtpu analog
-    of PSLSE's seeded randomized regression (pslse.parms SEED ranges)."""
+    lengths, tile heights, ragged (incl. empty) reads — every combination
+    must match the numpy oracle bit-exactly.  The swtpu analog of PSLSE's
+    seeded randomized regression (pslse.parms SEED ranges)."""
     rng = np.random.default_rng(0xF0220)
     for it in range(12):
         pen = Penalties(
@@ -379,10 +316,8 @@ def test_fuzz_differential_sweep():
             gap_open=-int(rng.integers(1, 14)),
             gap_extend=-int(rng.integers(1, 7)),
         )
-        segments = int(rng.choice([1, 2, 4]))
-        rows = int(rng.choice([1, 2, 4] if segments == 4 else [1, 2, 4, 8]))
-        qcap = 128 // segments
-        qlen = int(rng.integers(1, qcap + 1))
+        tile = int(rng.choice([4, 16, 64]))
+        qlen = int(rng.integers(1, 129))
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         n = int(rng.integers(3, 25))
         targets = [
@@ -391,45 +326,40 @@ def test_fuzz_differential_sweep():
         ]
         want = score_many_vs_one(query, targets, pen)
         got = score_streams(
-            query, targets, n_streams=S_(4) * segments, penalties=pen,
-            interpret=INTERPRET, segments=segments, rows=rows,
+            query, targets, n_streams=8, penalties=pen,
+            interpret=interpret, tile=tile,
         )
         np.testing.assert_array_equal(
             got, want,
-            err_msg=f"iter {it}: pen={pen} seg={segments} rows={rows} "
-            f"qlen={qlen}",
+            err_msg=f"iter {it}: pen={pen} tile={tile} qlen={qlen}",
         )
 
 
 @pytest.mark.slow
-def test_fuzz_differential_long_and_biased():
-    """Fuzz the chained long-query kernel and the biased wrap mode."""
-    from swtpu.bank.streams import pack_streams, pack_streams_long
-    from swtpu.bank.streams import gather_stream_scores
+def test_fuzz_differential_long_and_biased(interpret):
+    """Fuzz the chained long-query tiles and the biased wrap mode."""
     from swtpu.oracle import sw_score_single_biased
-    from swtpu.ops.pallas_stream import (
-        sw_scores_stream, sw_scores_stream_long,
-    )
+    from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(0xF0221)
     for it in range(6):
         qlen = int(rng.integers(129, 520))
-        rows = int(rng.choice([1, 2, 4]))
+        tile = int(rng.choice([32, 64, 128]))
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         targets = [
             rng.integers(0, 4, size=int(rng.integers(1, 60))).astype(np.int8)
             for _ in range(int(rng.integers(3, 12)))
         ]
         want = score_many_vs_one(query, targets)
-        b = pack_streams_long(query, targets, n_streams=S_(8), rows=rows)
+        b = pack_streams(query, targets, n_streams=8)
         got = np.asarray(
-            sw_scores_stream_long(
+            sw_scores_stream(
                 b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-                interpret=INTERPRET, rows=rows,
+                interpret=interpret, tile=tile,
             )
         )
         np.testing.assert_array_equal(
-            got, want, err_msg=f"long iter {it}: qlen={qlen} rows={rows}"
+            got, want, err_msg=f"long iter {it}: qlen={qlen} tile={tile}"
         )
     for it in range(6):
         W = int(rng.integers(6, 11))
@@ -443,16 +373,16 @@ def test_fuzz_differential_long_and_biased():
             [sw_score_single_biased(query, t, score_width=W) for t in targets],
             np.int32,
         )
-        rows = int(rng.choice([1, 2, 4]))
-        b = pack_streams(query, targets, n_streams=S_(4), rows=rows)
+        tile = int(rng.choice([8, 32, 128]))
+        b = pack_streams(query, targets, n_streams=4)
         got = np.asarray(
             sw_scores_stream(
                 b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-                interpret=INTERPRET, rows=rows, score_width=W,
+                interpret=interpret, tile=tile, score_width=W,
             )
         )
         np.testing.assert_array_equal(
-            got, want, err_msg=f"biased iter {it}: W={W} qlen={qlen} rows={rows}"
+            got, want, err_msg=f"biased iter {it}: W={W} qlen={qlen} tile={tile}"
         )
 
 
@@ -496,13 +426,13 @@ def test_stream_regular_extraction_matches_gather():
     rng = np.random.default_rng(51)
     q = rng.integers(0, 4, size=33).astype(np.int8)
     t = rng.integers(0, 4, size=(24, 17)).astype(np.int8)
-    b = pack_streams(q, list(t), n_streams=8, rows=2)
+    b = pack_streams(q, list(t), n_streams=8)
     assert b.emit_regular is not None
     want = score_many_vs_one(q, list(t))
     args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
     got_fast = np.asarray(sw_scores_stream(
-        *args, interpret=True, rows=2, emit_regular=b.emit_regular))
-    got_slow = np.asarray(sw_scores_stream(*args, interpret=True, rows=2))
+        *args, interpret=True, tile=16, emit_regular=b.emit_regular))
+    got_slow = np.asarray(sw_scores_stream(*args, interpret=True, tile=16))
     np.testing.assert_array_equal(got_fast, want)
     np.testing.assert_array_equal(got_slow, want)
 
@@ -515,11 +445,11 @@ def test_stream_regular_extraction_segments_and_biased():
     rng = np.random.default_rng(52)
     q = rng.integers(0, 4, size=20).astype(np.int8)
     t = rng.integers(0, 4, size=(32, 11)).astype(np.int8)
-    b = pack_streams(q, list(t), n_streams=16, segments=4)
+    b = pack_streams(q, list(t), n_streams=16)
     assert b.emit_regular is not None
     got = np.asarray(sw_scores_stream(
         b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-        interpret=True, segments=4, emit_regular=b.emit_regular))
+        interpret=True, emit_regular=b.emit_regular))
     np.testing.assert_array_equal(got, score_many_vs_one(q, list(t)))
     # biased wrap + regular extraction compose
     W = 6
@@ -536,49 +466,44 @@ def test_stream_regular_extraction_segments_and_biased():
 
 
 def test_stream_long_regular_extraction():
-    from swtpu.bank.streams import pack_streams_long
-    from swtpu.ops.pallas_stream import sw_scores_stream_long
+    from swtpu.ops.pallas_stream import sw_scores_stream
     from swtpu.oracle import score_many_vs_one
 
     rng = np.random.default_rng(53)
     q = rng.integers(0, 4, size=150).astype(np.int8)
     t = rng.integers(0, 4, size=(12, 25)).astype(np.int8)
-    b = pack_streams_long(q, list(t), n_streams=4, rows=4)
+    b = pack_streams(q, list(t), n_streams=4)
     assert b.emit_regular is not None
-    got = np.asarray(sw_scores_stream_long(
+    got = np.asarray(sw_scores_stream(
         b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
-        interpret=True, rows=4, emit_regular=b.emit_regular))
+        interpret=True, tile=64, emit_regular=b.emit_regular))
     np.testing.assert_array_equal(got, score_many_vs_one(q, list(t)))
 
 
 @pytest.mark.slow
-def test_fuzz_differential_regular_extraction():
+def test_fuzz_differential_regular_extraction(interpret):
     """Seeded sweep over equal-length configs: the strided regular
     extraction must be bit-identical to both the scattered gather and the
-    oracle across random (S, rows, segments, read length, batch) shapes —
-    incl. biased wrap mode."""
+    oracle across random (S, tile, read length, batch) shapes — incl.
+    biased wrap mode."""
     from swtpu.bank.streams import pack_streams
     from swtpu.oracle import sw_score_single_biased
     from swtpu.ops.pallas_stream import sw_scores_stream
 
     rng = np.random.default_rng(0xF0522)
     for it in range(8):
-        segments = int(rng.choice([1, 2, 4]))
-        rows = int(rng.choice([1, 2, 4]))
-        if (128 // rows) % segments:
-            segments = 1
-        S = S_(4) * segments
+        tile = int(rng.choice([8, 32, 64]))
+        S = 4 * int(rng.choice([1, 2, 4]))
         n = int(rng.integers(3, 40))
         per = int(rng.integers(1, 5))
         B = S * per
-        qlen = int(rng.integers(1, 128 // segments + 1))
+        qlen = int(rng.integers(1, 129))
         W = int(rng.integers(6, 11)) if it % 2 else None
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
         if W is not None:
             t[0, :] = np.resize(query, n)  # push toward the wrap regime
-        b = pack_streams(query, list(t), n_streams=S, segments=segments,
-                         rows=rows)
+        b = pack_streams(query, list(t), n_streams=S)
         assert b.emit_regular is not None, f"iter {it}: expected regular"
         if W is None:
             want = score_many_vs_one(query, list(t))
@@ -588,12 +513,111 @@ def test_fuzz_differential_regular_extraction():
                  for tt in t], np.int32,
             )
         args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
-        kw = dict(interpret=INTERPRET, segments=segments, rows=rows,
-                  score_width=W)
+        kw = dict(interpret=interpret, tile=tile, score_width=W)
         fast = np.asarray(sw_scores_stream(
             *args, emit_regular=b.emit_regular, **kw))
         slow = np.asarray(sw_scores_stream(*args, **kw))
-        msg = (f"iter {it}: S={S} rows={rows} seg={segments} n={n} "
+        msg = (f"iter {it}: S={S} tile={tile} n={n} "
                f"per={per} qlen={qlen} W={W}")
         np.testing.assert_array_equal(fast, want, err_msg=msg + " (fast)")
         np.testing.assert_array_equal(slow, want, err_msg=msg + " (slow)")
+
+
+# ---------------- the GPU kernel's modes and contract ---------------------
+
+
+def _modes_case(mode, rng):
+    """(q [N, L] per-stream queries, targets, per-read query, width)."""
+    if mode == "pairs":
+        qs = [rng.integers(0, 4, size=n).astype(np.int8) for n in (12, 45, 70)]
+        queries = [qs[i % 3] for i in range(14)]
+        targets = _targets(rng, 14, lo=0, hi=60)
+        return queries, targets, None
+    L = {"exact": 40, "wrap": 60, "chained": 150}[mode]
+    query = rng.integers(0, 4, size=L).astype(np.int8)
+    targets = _targets(rng, 13, lo=0, hi=70)
+    if mode == "wrap":
+        targets += [query.copy(), query[:45].copy()]  # past a 7-bit ceiling
+    return query, targets, 7 if mode == "wrap" else None
+
+
+@pytest.mark.parametrize("mode", ["exact", "wrap", "chained", "pairs"])
+def test_kernel_modes_match_oracle(mode, interpret):
+    """Every mode the wavefront keeps, bit-exact against the oracle: exact
+    scoring, W-bit wrap-parity, chained query tiles, and per-stream query
+    registers (pairs)."""
+    from swtpu.bank.streams import pack_pair_streams
+    from swtpu.oracle import sw_score_single, sw_score_single_biased
+    from swtpu.ops.pallas_stream import sw_scores_stream
+
+    rng = np.random.default_rng(700 + len(mode))
+    query, targets, width = _modes_case(mode, rng)
+    if mode == "pairs":
+        b = pack_pair_streams(query, targets, n_streams=8)
+        want = [sw_score_single(q, t) for q, t in zip(query, targets)]
+    else:
+        b = pack_streams(query, targets, n_streams=8)
+        if width is None:
+            want = score_many_vs_one(query, targets)
+        else:
+            want = [sw_score_single_biased(query, t, score_width=width)
+                    for t in targets]
+    got = np.asarray(sw_scores_stream(
+        b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
+        tile=32, interpret=interpret, score_width=width,
+        emit_regular=b.emit_regular,
+    ))
+    np.testing.assert_array_equal(got, np.asarray(want, np.int32))
+    if width is not None:
+        assert got[-2] < score_many_vs_one(query, targets)[-2]  # wrap fired
+
+
+@pytest.mark.parametrize(
+    "n_streams,block,T,match",
+    [(8, 6, 32, "power of two"), (12, 8, 32, "divide"), (8, 8, 40, "multiple")],
+)
+def test_kernel_rejects_bad_geometry(n_streams, block, T, match):
+    from swtpu.ops.pallas_stream import sw_scores_stream
+
+    q = np.zeros((n_streams, 4), np.int8)
+    stream = np.full((n_streams, T), 4, np.int8)
+    es = np.zeros(1, np.int32)
+    with pytest.raises(ValueError, match=match):
+        sw_scores_stream(q, stream, es, es, block=block, interpret=True)
+
+
+@pytest.mark.parametrize(
+    "qlen,tile,want",
+    [(0, 64, (1, 1)), (20, 64, (1, 20)), (64, 64, (1, 64)),
+     (100, 64, (2, 50)), (128, 64, (2, 64)), (512, 64, (8, 64))],
+)
+def test_tile_rows_balances_tiles(qlen, tile, want):
+    # K tiles of equal height: a short query takes a short tile
+    from swtpu.ops.pallas_stream import tile_rows
+
+    assert tile_rows(qlen, tile) == want
+
+
+@pytest.mark.gpu
+def test_full_width_kernel_on_gpu(gpu, plan):
+    """The compiled kernel at the platform table's widths on a real
+    library slice, bit-exact against the oracle batch."""
+    from swtpu.oracle import sw_score_batch
+    from swtpu.ops.pallas_stream import sw_scores_stream
+
+    rng = np.random.default_rng(800)
+    R = 4 * plan.streams
+    lens = rng.integers(100, 251, size=R).astype(np.int32)
+    mat = rng.integers(0, 4, size=(R, 250)).astype(np.int8)
+    query = rng.integers(0, 4, size=128).astype(np.int8)
+    b = pack_streams(query, mat, n_streams=plan.streams, lens=lens)
+    got = np.asarray(sw_scores_stream(
+        query, b.stream, b.emit_stream, b.emit_step.astype(np.int32),
+        tile=plan.tile, block=plan.block,
+    ))
+    idx = rng.choice(R, 1000, replace=False)
+    want = sw_score_batch(
+        np.tile(query, (len(idx), 1)), mat[idx], np.full(len(idx), 128),
+        lens[idx],
+    )
+    np.testing.assert_array_equal(got[idx], want)
